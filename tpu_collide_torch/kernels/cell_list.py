@@ -1,0 +1,156 @@
+"""Cell list: the fleet sorted by grid cell, feeding the fused kernel.
+
+The port of tpu_collide/kernels/cell_list.py. It keeps the semantics of
+`build_cell_list` and leaves the TPU layout behind (128-lane storage rows,
+tiles, per-tile windows, guard tables):
+
+  * objects sort by flat cell id (cz*ny + cy)*nx + cx, the cell computed in
+    f32 as floor((pos - lo) / cell_size) clipped to the grid; dead objects
+    carry the key num_cells and sort last;
+  * `cell_start[c]` is the sorted index where cell c begins
+    (`cell_start[num_cells]` is the number of alive objects);
+  * an object's candidates are the objects of the 1-cell stencil around its
+    cell. With cells sorted by (z, y, x), that stencil is 3 contiguous runs
+    of the sorted order in 2D and 9 in 3D: for each (dz, dy), the cells
+    cx-1 .. cx+1.
+
+Every object walks exactly its own runs, so the broad phase has no window
+capacity and `overflow` is 0 by construction. `band_cells` and `cand_lanes`
+are accepted and ignored. In the unbanded layout of the JAX package, its
+`cr_start[b]` equals `cell_start[b * nx]` here.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from tpu_collide_torch.core.config import SystemConfig
+from tpu_collide_torch.core.state import ObjectState
+
+# Sorted per-object record: 16 f32 = 64 bytes, four 16-byte loads in the
+# kernel. sin_h / cos_h are computed once per object here, so the kernel
+# and its plain version read the same values for the 'product' angle form.
+FIELD_NAMES = ("x", "y", "z", "vx", "vy", "vz", "ax", "ay", "az",
+               "size", "heading", "otype", "sin_h", "cos_h", "pad0", "pad1")
+NF = len(FIELD_NAMES)
+FI = {name: i for i, name in enumerate(FIELD_NAMES)}
+
+
+@dataclasses.dataclass(frozen=True)
+class CellList:
+    """The fleet sorted by cell.
+
+    fields:     [N, NF] f32 in FIELD_NAMES order, one row per sorted object
+    oid:        [N] int32 object id of each sorted object
+    cell:       [N] int32 flat cell id of each sorted object (num_cells for
+                dead objects, which sort last)
+    cell_start: [num_cells + 1] int32 sorted index where each cell begins
+    order:      [N] int64 state index of each sorted object
+    n_alive:    [] int32
+    overflow:   [] int32 broad-phase candidates beyond capacity: always 0
+    """
+    fields: torch.Tensor
+    oid: torch.Tensor
+    cell: torch.Tensor
+    cell_start: torch.Tensor
+    order: torch.Tensor
+    n_alive: torch.Tensor
+    overflow: torch.Tensor
+    grid_dims: tuple
+    is3d: bool
+
+    @property
+    def n(self) -> int:
+        return self.fields.shape[0]
+
+    @property
+    def num_cells(self) -> int:
+        nx, ny, nz = self.grid_dims
+        return nx * ny * nz
+
+    @property
+    def alive(self) -> torch.Tensor:
+        """[N] bool per sorted object."""
+        return self.cell < self.num_cells
+
+
+def build_cell_list(state: ObjectState, cfg: SystemConfig) -> CellList:
+    if cfg.stencil_halfwidth != 1:
+        raise ValueError(
+            "the fused path requires cell_size >= search_radius "
+            f"(stencil halfwidth 1, got {cfg.stencil_halfwidth})")
+    nx, ny, nz = cfg.grid_dims
+    num_cells = nx * ny * nz
+    dev = state.device
+    lo = torch.tensor(cfg.world.lo, dtype=torch.float32, device=dev)
+    # a 0-dim device tensor keeps the division an IEEE division on every
+    # device (torch turns division by a Python scalar into a reciprocal
+    # multiply on CUDA)
+    cs = torch.tensor(cfg.grid.cell_size, dtype=torch.float32, device=dev)
+    hi = torch.tensor((nx - 1, ny - 1, nz - 1), dtype=torch.int32, device=dev)
+    c3 = torch.clamp(torch.floor((state.pos - lo) / cs).to(torch.int32),
+                     min=torch.zeros_like(hi), max=hi)
+    flat = (c3[:, 2] * ny + c3[:, 1]) * nx + c3[:, 0]
+    flat = torch.where(state.alive, flat, torch.full_like(flat, num_cells))
+    key, order = torch.sort(flat, stable=True)
+    heading = state.heading[order]
+    fields = torch.cat([
+        state.pos[order], state.vel[order], state.acc[order],
+        state.size[order, None], heading[:, None],
+        state.otype[order, None].to(torch.float32),
+        torch.sin(heading)[:, None], torch.cos(heading)[:, None],
+        torch.zeros((state.n, 2), dtype=torch.float32, device=dev),
+    ], dim=1).contiguous()
+    cell_start = torch.searchsorted(
+        key, torch.arange(num_cells + 1, dtype=torch.int32, device=dev),
+        out_int32=True)
+    return CellList(
+        fields=fields, oid=state.oid[order].contiguous(),
+        cell=key.contiguous(), cell_start=cell_start, order=order,
+        n_alive=cell_start[num_cells],
+        overflow=torch.zeros((), dtype=torch.int32, device=dev),
+        grid_dims=(nx, ny, nz), is3d=cfg.world.is_3d)
+
+
+def stencil_runs(cl: CellList, rows: torch.Tensor):
+    """(start, end) [R, S] int64: the S candidate runs (3 in 2D, 9 in 3D)
+    of each sorted row, in ascending sorted order; empty for dead rows and
+    for (dz, dy) outside the grid."""
+    nx, ny, nz = cl.grid_dims
+    c = cl.cell[rows].to(torch.int64)
+    alive = c < cl.num_cells
+    c = torch.where(alive, c, torch.zeros_like(c))
+    cx, cy, cz = c % nx, (c // nx) % ny, c // (nx * ny)
+    x0 = torch.clamp_min(cx - 1, 0)
+    x1 = torch.clamp_max(cx + 1, nx - 1)
+    starts, ends = [], []
+    for dz in ((-1, 0, 1) if cl.is3d else (0,)):
+        for dy in (-1, 0, 1):
+            z, y = cz + dz, cy + dy
+            ok = alive & (z >= 0) & (z < nz) & (y >= 0) & (y < ny)
+            base = (torch.clamp(z, 0, nz - 1) * ny
+                    + torch.clamp(y, 0, ny - 1)) * nx
+            s = cl.cell_start[base + x0].to(torch.int64)
+            e = cl.cell_start[base + x1 + 1].to(torch.int64)
+            starts.append(torch.where(ok, s, 0))
+            ends.append(torch.where(ok, e, 0))
+    return torch.stack(starts, dim=1), torch.stack(ends, dim=1)
+
+
+def stencil_pairs(cl: CellList, rows: torch.Tensor):
+    """(own, cand) int64 [P]: every (row, candidate) pair of the rows' runs,
+    in (row, candidate) ascending order for ascending rows. Self pairs are
+    included. Waits for the device once, for the pair count."""
+    start, end = stencil_runs(cl, rows)
+    s = start.shape[1]
+    ln = (end - start).reshape(-1)
+    total = int(ln.sum())
+    dev = cl.fields.device
+    run = torch.repeat_interleave(
+        torch.arange(ln.numel(), device=dev), ln, output_size=total)
+    first = torch.cumsum(ln, 0) - ln
+    cand = (start.reshape(-1)[run]
+            + torch.arange(total, device=dev) - first[run])
+    own = rows.to(torch.int64).repeat_interleave(s)[run]
+    return own, cand

@@ -1,0 +1,2 @@
+from tpu_collide_torch.sim.integrator import integrate
+from tpu_collide_torch.sim.generator import generate_fleet, default_cities
