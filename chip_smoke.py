@@ -12,9 +12,21 @@ Phases, one JSON line each (any failure raises and exits non-zero):
   main_path        make_step(cfg, backend="fused") at the configurations of
                    bench.py's flagship rows; at 100k the step's detection
                    also runs through the plain version and must agree
+  predict_kernel_vs_plain
+                   the CUDA predict kernel against its plain version on one
+                   cell list, all 20 offsets, 20k-object 2D and 3D fleets
+  predict_path     trajectory prediction at the size of bench.py's predict
+                   row: 100k city-skew objects, 4 fused steps each followed
+                   by update_history, then _predict_device_fused (k_slots
+                   16, merge_k 32, horizon 10 s at 0.5 s); the kernel
+                   against its plain version on the first and last offset
+  predict_oracle   fused_predict (the kernel) against predict_collisions
+                   (the grid path) on a 20k uniform fleet whose buckets do
+                   not truncate
 
-The line before the last lists the kernels with their launches on the main
-path and their times; the last line is {"ok": true, "device": {...}}.
+The line before the last lists the kernels with their launches (the
+detection kernels' on main_path, the predict kernel's on predict_path) and
+their times; the last line is {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -33,18 +45,26 @@ KEY_TOL = 1e-6
 # Alert values of the kernel path against the plain path: the same refine
 # code on bit-equal slots (the tolerance of tests/test_fused_kernel.py).
 ALERT_TOL = 1e-5
+# Predicted risks and ttcs of fused_predict against predict_collisions: the
+# same pipeline helpers recompute both (the tolerance of
+# tests/test_torch_predict.py).
+ORACLE_TOL = 1e-5
+# bench.py's predict row (bench.py:429-443): horizon 10 s at 0.5 s steps,
+# k_slots 16, merge_k 32 (the default), a 1 s sub-window at time_step
+# 0.1 s, so 10 sweep samples
+HORIZON, PRED_STEP, K_SLOTS, SUB_STEPS = 10.0, 0.5, 16, 10
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def median_ms(fn, torch) -> float:
-    """Median over REPEATS runs of fn, each bracketed by CUDA events (after
-    one warm-up run)."""
+def median_ms(fn, torch, repeats=REPEATS) -> float:
+    """Median over `repeats` runs of fn, each bracketed by CUDA events
+    (after one warm-up run)."""
     fn()
     times = []
-    for _ in range(REPEATS):
+    for _ in range(repeats):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -55,15 +75,12 @@ def median_ms(fn, torch) -> float:
     return statistics.median(times)
 
 
-def compare_slots(got, want, k, torch) -> dict:
-    """Kernel slots against plain slots: counters exact; slot sets equal
-    and keys within KEY_TOL wherever emitted <= k."""
-    if int(got.checked) != int(want.checked):
-        raise AssertionError(f"checked {int(got.checked)} != "
-                             f"{int(want.checked)}")
-    for f in ("emitted", "qual"):
-        if not torch.equal(getattr(got, f), getattr(want, f)):
-            raise AssertionError(f"{f} differs")
+def compare_pred_slots(got, want, k, torch) -> dict:
+    """Kernel slots against plain slots (detection [N, k] or predict
+    [n_off, N, k]): emitted exact; slot sets equal and keys within KEY_TOL
+    wherever emitted <= k."""
+    if not torch.equal(got.emitted, want.emitted):
+        raise AssertionError("emitted differs")
     rows = want.emitted <= k
     gi, go = torch.sort(got.idx[rows], dim=1)
     wi, wo = torch.sort(want.idx[rows], dim=1)
@@ -74,11 +91,58 @@ def compare_slots(got, want, k, torch) -> dict:
         if bool(rows.any()) else 0.0
     if err > KEY_TOL:
         raise AssertionError(f"slot keys differ by {err}")
-    return dict(checked=int(got.checked),
-                emitted=int(got.emitted.sum()), qual=int(got.qual.sum()),
+    return dict(emitted=int(got.emitted.sum()),
                 rows_over_k=int((~rows).sum()), max_abs_err=err,
                 bit_equal=bool(torch.equal(got.keys, want.keys)
                                and torch.equal(got.idx, want.idx)))
+
+
+def compare_slots(got, want, k, torch) -> dict:
+    """Detection kernel slots against plain slots: compare_pred_slots, and
+    the checked and qualifying counters exact."""
+    if int(got.checked) != int(want.checked):
+        raise AssertionError(f"checked {int(got.checked)} != "
+                             f"{int(want.checked)}")
+    if not torch.equal(got.qual, want.qual):
+        raise AssertionError("qual differs")
+    res = compare_pred_slots(got, want, k, torch)
+    return dict(checked=int(got.checked), emitted=res.pop("emitted"),
+                qual=int(got.qual.sum()), **res)
+
+
+def risk_map(other, valid, risk, ttc) -> dict:
+    """{(object, other): (risk, ttc)} of the valid merged entries."""
+    v = valid.cpu()
+    rows = v.nonzero()[:, 0].tolist()
+    cols = [x.cpu()[v].tolist() for x in (other, risk, ttc)]
+    return {(i, o): (r, t) for i, o, r, t in zip(rows, *cols)}
+
+
+def check_prediction(out, cfg, n, r_cap, torch) -> int:
+    """The repo's own checks of a compacted prediction: shapes, finite
+    values, risks in [risk_low, 1], oids in range, ttc within the horizon
+    plus the sub-window; entries past the qualifying count carry risk -1.
+    Returns the qualifying count."""
+    risk, veh, other, ttc, dist, count = out[:6]
+    r = min(r_cap, n * 32)
+    if any(x.shape != (r,) for x in (risk, veh, other, ttc, dist)):
+        raise AssertionError("prediction shape")
+    c = min(int(count), r)
+    if not bool((risk[c:] == -1.0).all()):
+        raise AssertionError("prediction padding")
+    risk, veh, other, ttc, dist = (x[:c] for x in (risk, veh, other, ttc,
+                                                    dist))
+    if not bool(((risk >= cfg.alerts.risk_low) & (risk <= 1.0)).all()):
+        raise AssertionError("predicted risk outside [risk_low, 1]")
+    if not bool((torch.isfinite(ttc) & (ttc >= 0.0)
+                 & (ttc <= HORIZON + 1.0)).all()):
+        raise AssertionError("predicted ttc outside [0, horizon + 1 s]")
+    if not bool((torch.isfinite(dist) & (dist >= 0.0)).all()):
+        raise AssertionError("non-finite predicted distance")
+    if not bool(((veh >= 0) & (veh < n) & (other >= 0) & (other < n)
+                 & (veh != other)).all()):
+        raise AssertionError("predicted oids out of range")
+    return int(count)
 
 
 def alert_dict(alerts) -> dict:
@@ -125,9 +189,20 @@ def main() -> None:
     from tpu_collide_torch.engine import detect_and_alerts_fused
     from tpu_collide_torch.kernels import _build
     from tpu_collide_torch.kernels.cell_list import build_cell_list
+    from tpu_collide_torch.api.scene import _predict_device_fused
+    from tpu_collide_torch.detect.predict import (classify_trajectories,
+                                                  empty_history,
+                                                  predict_collisions,
+                                                  predict_offsets,
+                                                  update_history)
+    from tpu_collide_torch.engine import grid_overflow
+    from tpu_collide_torch.index.grid import build_grid
     from tpu_collide_torch.kernels.fused_detect import (fused_topk,
                                                         fused_topk_plain,
+                                                        predict_topk,
+                                                        predict_topk_plain,
                                                         slot_count)
+    from tpu_collide_torch.kernels.refine import fused_predict
     from tpu_collide_torch.sim import generate_fleet
     import numpy as np
 
@@ -302,6 +377,132 @@ def main() -> None:
                      "pairs equal"))
         emit(line)
 
+    # ---- predict_kernel_vs_plain: 20k fleets, one cell list, all offsets --
+    offs = torch.tensor(predict_offsets(HORIZON, PRED_STEP),
+                        dtype=torch.float32, device=dev)
+    pred_err = 0.0
+    for dim, base in (("2d", cfg100k), ("3d", cfg1m)):
+        cfg = base.replace(num_objects=20_000)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        st = generate_fleet(gen, cfg, "city_skew")
+        # random accelerations and classes, so that every class branch runs
+        zmask = torch.tensor([1.0, 1.0, float(cfg.world.is_3d)], device=dev)
+        st = st.replace(acc=torch.randn(st.pos.shape, generator=gen,
+                                        device=dev) * 0.8 * zmask)
+        cls = torch.randint(0, 3, (st.n,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        cl = build_cell_list(st, cfg, cls=cls)
+        pk = lambda: predict_topk(cl, cfg, offs, K_SLOTS, SUB_STEPS)
+        pp = lambda: predict_topk_plain(cl, cfg, offs, K_SLOTS, SUB_STEPS)
+        got, want = pk(), pp()
+        torch.cuda.synchronize()
+        res = compare_pred_slots(got, want, K_SLOTS, torch)
+        pred_err = max(pred_err, res["max_abs_err"])
+        emit(dict(phase="predict_kernel_vs_plain",
+                  fleet=f"20k_{dim}_cityskew", offsets=offs.numel(),
+                  k=K_SLOTS, sub_steps=SUB_STEPS, **res,
+                  ms=median_ms(pk, torch),
+                  plain_ms=median_ms(pp, torch, repeats=3), card=smi))
+
+    # ---- predict_path: bench.py's predict row (bench.py:400-450) ----
+    t_phase = time.perf_counter()
+    cfg = cfg100k
+    gen = torch.Generator(device=dev).manual_seed(5)
+    state = generate_fleet(gen, cfg, "city_skew")
+    step = tt.make_step(cfg, backend="fused", device=dev)
+    hist = empty_history(cfg.num_objects, device=dev)
+    clock = 0.0
+    for _ in range(4):
+        # the fleet moves between ticks, so that the classes are mixed
+        state, _ = step(state, gen)
+        clock += cfg.sim.dt
+        hist = update_history(hist, state, clock)
+    classes = torch.bincount(classify_trajectories(hist).long(),
+                             minlength=3).tolist()
+    r_cap = min(cfg.alerts.max_scene_alerts, cfg.num_objects * 32)
+    run = lambda: _predict_device_fused(state, hist, cfg, HORIZON,
+                                        PRED_STEP, r_cap, k_slots=K_SLOTS)
+    predict_topk.launches = 0
+    out = run()
+    ms_per_predict = median_ms(run, torch)
+    n_pred = predict_topk.launches
+    if n_pred != 2 + REPEATS:
+        raise AssertionError(f"predict_path: {n_pred} kernel launches in "
+                             f"{2 + REPEATS} predict calls")
+    count = check_prediction(out, cfg, cfg.num_objects, r_cap, torch)
+    overflow, slot_oflow, slot_trunc = (int(x) for x in out[6:9])
+    if overflow != 0:
+        raise AssertionError(f"predict_path: overflow {overflow}")
+    line = dict(
+        phase="predict_path", config="100k_2d_cityskew_predict",
+        classes=classes, ms_per_predict=ms_per_predict,
+        calls_timed=REPEATS, kernel_launches=n_pred, risks=count,
+        returned=min(count, r_cap), max_risk=float(out[0][0]),
+        overflow=overflow, slot_oflow=slot_oflow, slot_trunc=slot_trunc,
+        card=smi)
+    # the kernel at this size: all offsets, and against its plain version
+    # on the first and the last offset (all 20 take the plain version too
+    # long)
+    cl = build_cell_list(state, cfg, cls=classify_trajectories(hist))
+    ends = offs[[0, -1]].contiguous()
+    got = predict_topk(cl, cfg, ends, K_SLOTS, SUB_STEPS)
+    want = predict_topk_plain(cl, cfg, ends, K_SLOTS, SUB_STEPS)
+    res = compare_pred_slots(got, want, K_SLOTS, torch)
+    pred_err = max(pred_err, res["max_abs_err"])
+    pred_ms = (
+        median_ms(lambda: predict_topk(cl, cfg, ends, K_SLOTS, SUB_STEPS),
+                  torch),
+        median_ms(lambda: predict_topk_plain(cl, cfg, ends, K_SLOTS,
+                                             SUB_STEPS), torch, repeats=3))
+    line.update(kernel_ms_all_offsets=median_ms(
+                    lambda: predict_topk(cl, cfg, offs, K_SLOTS, SUB_STEPS),
+                    torch),
+                kernel_ms_first_last=pred_ms[0],
+                plain_ms_first_last=pred_ms[1],
+                kernel_vs_plain_first_last=res,
+                phase_seconds=time.perf_counter() - t_phase)
+    emit(line)
+
+    # ---- predict_oracle: the kernel path against the grid path ----
+    base = cfg100k.replace(num_objects=20_000)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    state = generate_fleet(gen, base, "uniform")
+    step = tt.make_step(base, backend="fused", device=dev)
+    hist = empty_history(base.num_objects, device=dev)
+    clock = 0.0
+    for _ in range(4):
+        state, _ = step(state, gen)
+        clock += base.sim.dt
+        hist = update_history(hist, state, clock)
+    index = build_grid(state.pos, state.alive, base)
+    nc = base.num_cells
+    cap = int((index.starts[1:nc + 1] - index.starts[:nc]).max())
+    # a fleet-exact bucket capacity: the grid path truncates nothing
+    cfg = base.replace(grid=dataclasses.replace(base.grid,
+                                                cell_capacity=cap))
+    g_over = int(grid_overflow(index, cfg))
+    want = predict_collisions(state, hist, index, cfg, horizon=HORIZON,
+                              step=PRED_STEP)
+    got = fused_predict(state, hist, cfg, horizon=HORIZON, step=PRED_STEP,
+                        k_slots=K_SLOTS)
+    if g_over != 0 or int(got[5]) != 0 or int(got[6]) != 0:
+        raise AssertionError(f"predict_oracle: grid_overflow {g_over}, "
+                             f"overflow {int(got[5])}, slot_oflow "
+                             f"{int(got[6])}")
+    wm, gm = risk_map(*want[:4]), risk_map(*got[:4])
+    if not wm:
+        raise AssertionError("predict_oracle: no predicted risks")
+    if set(gm) != set(wm):
+        raise AssertionError(f"predict_oracle: pair sets differ "
+                             f"({len(set(wm) - set(gm))} missing, "
+                             f"{len(set(gm) - set(wm))} extra)")
+    d = max(abs(x - y) for key in wm for x, y in zip(gm[key], wm[key]))
+    if d > ORACLE_TOL:
+        raise AssertionError(f"predict_oracle: values differ by {d}")
+    emit(dict(phase="predict_oracle", fleet="20k_2d_uniform",
+              cell_capacity=cap, grid_overflow=g_over, pairs=len(wm),
+              max_abs_diff=d, slot_trunc=int(got[7]), card=smi))
+
     kernels = [dict(name=f"fused_topk[{mode}]", route="cuda",
                     source="tpu_collide_torch/csrc/fused_detect.cu",
                     replaces="tpu_collide/kernels/fused_detect.py:144",
@@ -310,6 +511,11 @@ def main() -> None:
                     plain_ms=kernel_ms[cfg_name][1])
                for mode, cfg_name in (("hits", "100k_2d_fast"),
                                       ("survivors", "100k_2d_precise"))]
+    kernels.append(dict(name="fused_topk[predict]", route="cuda",
+                        source="tpu_collide_torch/csrc/fused_predict.cu",
+                        replaces="tpu_collide/kernels/fused_detect.py:553",
+                        launches=n_pred, max_abs_err=pred_err,
+                        ms=pred_ms[0], plain_ms=pred_ms[1]))
     for kr in kernels:
         if kr["launches"] == 0:
             raise AssertionError(f"{kr['name']} never ran on the main path")

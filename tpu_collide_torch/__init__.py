@@ -1,9 +1,11 @@
 """tpu_collide_torch: the PyTorch / CUDA port of tpu-collide.
 
 The fused detection step of `tpu_collide` (integrate, cell-list build, one
-fused broad + narrow phase kernel, refine tail) in PyTorch, with the kernel
-written in CUDA C++ for Hopper (csrc/). The JAX package stays the reference
-the port is checked against; this package imports torch and never jax.
+fused broad + narrow phase kernel, refine tail) and its trajectory
+prediction (detect/predict.py, kernels/refine.fused_predict) in PyTorch,
+with the kernels written in CUDA C++ for Hopper (csrc/). The JAX package
+stays the reference the port is checked against; this package imports
+torch and never jax.
 """
 from tpu_collide_torch.core.config import (SystemConfig, WorldConfig,
                                            GridConfig, DetectionConfig,

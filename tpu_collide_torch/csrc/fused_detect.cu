@@ -25,30 +25,16 @@
 // plain PyTorch version in tpu_collide_torch/kernels/fused_detect.py; built
 // with -fmad=false and without fast math, the two agree bit for bit.
 
-#include <cuda_runtime.h>
+#include "fused_common.cuh"
 
 namespace {
 
-constexpr int K_MAX = 16;
-constexpr float KEY_NONE = -3.0f;
-constexpr float KEY_SUB = -2.0f;
-
-// f32 constants, in the order of PARAM_NAMES in fused_detect.py
-struct Params {
-  float r2, min_rs2, time_window, dt, t_max, conv, safe_base,
-      max_warning_time, max_relative_speed, w_dist, w_time, w_speed, w_angle,
-      w_type, same_type, diff_type, risk_low, risk_medium, risk_high,
-      ttc_critical, ttc_high;
-};
-constexpr int N_PARAMS = sizeof(Params) / sizeof(float);
-
-struct Shape {
-  int n, nx, ny, nz, is3d, k, count_checked, angle_product;
-};
-
-// record layout of one sorted object (cell_list.FIELD_NAMES), 4 x float4:
-// r0 = (x, y, z, vx)  r1 = (vy, vz, ax, ay)
-// r2 = (az, size, heading, otype)  r3 = (sin_h, cos_h, -, -)
+using tc::K_MAX;
+using tc::KEY_NONE;
+using tc::KEY_SUB;
+using tc::N_PARAMS;
+using tc::Params;
+using tc::Shape;
 
 template <bool HITS>
 __global__ void __launch_bounds__(128)
@@ -82,140 +68,116 @@ fused_topk_kernel(const float4* __restrict__ rec,
       const int cx = c % sh.nx;
       const int cy = (c / sh.nx) % sh.ny;
       const int cz = c / (sh.nx * sh.ny);
-      const int x0 = cx > 0 ? cx - 1 : 0;
-      const int x1 = cx < sh.nx - 1 ? cx + 1 : sh.nx - 1;
-      const int dz0 = sh.is3d ? -1 : 0, dz1 = sh.is3d ? 1 : 0;
 
-      for (int dz = dz0; dz <= dz1; ++dz) {
-        const int z = cz + dz;
-        if (z < 0 || z >= sh.nz) continue;
-        for (int dy = -1; dy <= 1; ++dy) {
-          const int y = cy + dy;
-          if (y < 0 || y >= sh.ny) continue;
-          const int base = (z * sh.ny + y) * sh.nx;
-          const int j0 = cell_start[base + x0];
-          const int j1 = cell_start[base + x1 + 1];
-          for (int j = j0; j < j1; ++j) {
-            if (j == i) continue;  // pair identity = sorted index
-            const float4 c0 = rec[4 * j];
+      tc::for_each_run(cell_start, sh, cx, cy, cz, [&](int j0, int j1) {
+        for (int j = j0; j < j1; ++j) {
+          if (j == i) continue;  // pair identity = sorted index
+          const float4 c0 = rec[4 * j];
 
-            // stage 1: within search radius
-            const float dxp = c0.x - ox, dyp = c0.y - oy;
-            float d2 = dxp * dxp + dyp * dyp;
-            float dzp = 0.0f;
-            if (sh.is3d) {
-              dzp = c0.z - oz;
-              d2 = d2 + dzp * dzp;
-            }
-            if (!(d2 <= p.r2)) continue;
-            ++n_checked;
-
-            // stage 2: closest approach under constant acceleration
-            const float4 c1 = rec[4 * j + 1], c2 = rec[4 * j + 2];
-            const float dvx = c0.w - ovx, dvy = c1.x - ovy;
-            float rs2 = dvx * dvx + dvy * dvy;
-            float dot = dxp * dvx + dyp * dvy;
-            float dvz = 0.0f;
-            if (sh.is3d) {
-              dvz = c1.y - ovz;
-              rs2 = rs2 + dvz * dvz;
-              dot = dot + dzp * dvz;
-            }
-            const float rs2s = rs2 > 1e-12f ? rs2 : 1.0f;
-            const float ts = -(p.conv * dot) / rs2s;
-            const float dax = c1.z - oax, day = c1.w - oay;
-            const float cdx = dxp + dvx * ts + 0.5f * dax * ts * ts;
-            const float cdy = dyp + dvy * ts + 0.5f * day * ts * ts;
-            float cd2 = cdx * cdx + cdy * cdy;
-            if (sh.is3d) {
-              const float daz = c2.x - oaz;
-              const float cdz = dzp + dvz * ts + 0.5f * daz * ts * ts;
-              cd2 = cd2 + cdz * cdz;
-            }
-            const float safe = (osize + c2.y) * 0.5f + p.safe_base;
-            const float safe2 = safe * safe;
-            if (!((rs2 >= p.min_rs2) && (ts >= 0.0f) &&
-                  (ts <= p.time_window) && (cd2 <= safe2)))
-              continue;
-
-            float key;
-            bool qual;
-            if (HITS) {
-              // stage 3 (fast): first crossing of |p + v t| = safe, snapped
-              // up to the dt lattice
-              const float bq = 2.0f * dot;
-              const float cq = d2 - safe2;
-              const float disc = bq * bq - 4.0f * rs2 * cq;
-              const float sq = sqrtf(fmaxf(disc, 0.0f));
-              const float t_en = (-bq - sq) / (2.0f * rs2s);
-              const float t_ex = (-bq + sq) / (2.0f * rs2s);
-              const bool inside = cq <= 0.0f;
-              const float t_fi = inside ? 0.0f : fmaxf(t_en, 0.0f);
-              const float t_sn = ceilf(t_fi / p.dt - 1e-6f) * p.dt;
-              const bool sok =
-                  inside || ((t_sn >= t_en - 1e-6f) && (t_sn <= t_ex + 1e-6f));
-              if (!((disc >= 0.0f) && (rs2 > 1e-12f) && sok &&
-                    (t_sn <= p.t_max)))
-                continue;
-              const float t_hit = inside ? 0.0f : t_sn;
-              const float hdx = dxp + dvx * t_hit;
-              const float hdy = dyp + dvy * t_hit;
-              float hd2 = hdx * hdx + hdy * hdy;
-              if (sh.is3d) {
-                const float hdz = dzp + dvz * t_hit;
-                hd2 = hd2 + hdz * hdz;
-              }
-              const float d_hit = sqrtf(hd2);
-
-              // stage 4: weighted risk
-              const float chead = c2.z;
-              float angle;
-              if (sh.angle_product) {
-                const float4 c3 = rec[4 * j + 3];
-                const float sd = osin * c3.y - ocos * c3.x;
-                angle = ohead >= chead ? sd : -sd;
-              } else {
-                angle = sinf(fabsf(ohead - chead));
-              }
-              float risk =
-                  p.w_dist * (1.0f - d_hit / safe) +
-                  p.w_time * (1.0f - fminf(t_hit / p.max_warning_time, 1.0f)) +
-                  p.w_speed * fminf(sqrtf(rs2) / p.max_relative_speed, 1.0f) +
-                  p.w_angle * angle +
-                  p.w_type * (c2.w == otype ? p.same_type : p.diff_type);
-              risk = fminf(fmaxf(risk, 0.0f), 1.0f);
-
-              // priority and the scene ranking key
-              const bool crit = (risk >= p.risk_high) && (t_hit < p.ttc_critical);
-              const bool high = (risk >= p.risk_high) || (t_hit < p.ttc_high);
-              const bool med = risk >= p.risk_medium;
-              const float prio = crit ? 3.0f : (high ? 2.0f : (med ? 1.0f : 0.0f));
-              qual = risk >= p.risk_low;
-              key = qual ? 2.0f * prio + risk : risk + KEY_SUB;
-            } else {
-              // stage-2 survivor, ranked by closest-approach proximity
-              qual = true;
-              key = 1.0f - cd2 / safe2;
-            }
-            ++n_emit;
-            if (qual) ++n_qual;
-
-            // insert into the slots: key descending, index ascending
-            const int last = sh.k - 1;
-            if (key > skey[last] || (key == skey[last] && j < sidx[last])) {
-              int s = last;
-              while (s > 0 && (key > skey[s - 1] ||
-                               (key == skey[s - 1] && j < sidx[s - 1]))) {
-                skey[s] = skey[s - 1];
-                sidx[s] = sidx[s - 1];
-                --s;
-              }
-              skey[s] = key;
-              sidx[s] = j;
-            }
+          // stage 1: within search radius
+          const float dxp = c0.x - ox, dyp = c0.y - oy;
+          float d2 = dxp * dxp + dyp * dyp;
+          float dzp = 0.0f;
+          if (sh.is3d) {
+            dzp = c0.z - oz;
+            d2 = d2 + dzp * dzp;
           }
+          if (!(d2 <= p.r2)) continue;
+          ++n_checked;
+
+          // stage 2: closest approach under constant acceleration
+          const float4 c1 = rec[4 * j + 1], c2 = rec[4 * j + 2];
+          const float dvx = c0.w - ovx, dvy = c1.x - ovy;
+          float rs2 = dvx * dvx + dvy * dvy;
+          float dot = dxp * dvx + dyp * dvy;
+          float dvz = 0.0f;
+          if (sh.is3d) {
+            dvz = c1.y - ovz;
+            rs2 = rs2 + dvz * dvz;
+            dot = dot + dzp * dvz;
+          }
+          const float rs2s = rs2 > 1e-12f ? rs2 : 1.0f;
+          const float ts = -(p.conv * dot) / rs2s;
+          const float dax = c1.z - oax, day = c1.w - oay;
+          const float cdx = dxp + dvx * ts + 0.5f * dax * ts * ts;
+          const float cdy = dyp + dvy * ts + 0.5f * day * ts * ts;
+          float cd2 = cdx * cdx + cdy * cdy;
+          if (sh.is3d) {
+            const float daz = c2.x - oaz;
+            const float cdz = dzp + dvz * ts + 0.5f * daz * ts * ts;
+            cd2 = cd2 + cdz * cdz;
+          }
+          const float safe = (osize + c2.y) * 0.5f + p.safe_base;
+          const float safe2 = safe * safe;
+          if (!((rs2 >= p.min_rs2) && (ts >= 0.0f) &&
+                (ts <= p.time_window) && (cd2 <= safe2)))
+            continue;
+
+          float key;
+          bool qual;
+          if (HITS) {
+            // stage 3 (fast): first crossing of |p + v t| = safe, snapped
+            // up to the dt lattice
+            const float bq = 2.0f * dot;
+            const float cq = d2 - safe2;
+            const float disc = bq * bq - 4.0f * rs2 * cq;
+            const float sq = sqrtf(fmaxf(disc, 0.0f));
+            const float t_en = (-bq - sq) / (2.0f * rs2s);
+            const float t_ex = (-bq + sq) / (2.0f * rs2s);
+            const bool inside = cq <= 0.0f;
+            const float t_fi = inside ? 0.0f : fmaxf(t_en, 0.0f);
+            const float t_sn = ceilf(t_fi / p.dt - 1e-6f) * p.dt;
+            const bool sok =
+                inside || ((t_sn >= t_en - 1e-6f) && (t_sn <= t_ex + 1e-6f));
+            if (!((disc >= 0.0f) && (rs2 > 1e-12f) && sok &&
+                  (t_sn <= p.t_max)))
+              continue;
+            const float t_hit = inside ? 0.0f : t_sn;
+            const float hdx = dxp + dvx * t_hit;
+            const float hdy = dyp + dvy * t_hit;
+            float hd2 = hdx * hdx + hdy * hdy;
+            if (sh.is3d) {
+              const float hdz = dzp + dvz * t_hit;
+              hd2 = hd2 + hdz * hdz;
+            }
+            const float d_hit = sqrtf(hd2);
+
+            // stage 4: weighted risk
+            const float chead = c2.z;
+            float angle;
+            if (sh.angle_product) {
+              const float4 c3 = rec[4 * j + 3];
+              const float sd = osin * c3.y - ocos * c3.x;
+              angle = ohead >= chead ? sd : -sd;
+            } else {
+              angle = sinf(fabsf(ohead - chead));
+            }
+            float risk =
+                p.w_dist * (1.0f - d_hit / safe) +
+                p.w_time * (1.0f - fminf(t_hit / p.max_warning_time, 1.0f)) +
+                p.w_speed * fminf(sqrtf(rs2) / p.max_relative_speed, 1.0f) +
+                p.w_angle * angle +
+                p.w_type * (c2.w == otype ? p.same_type : p.diff_type);
+            risk = fminf(fmaxf(risk, 0.0f), 1.0f);
+
+            // priority and the scene ranking key
+            const bool crit = (risk >= p.risk_high) && (t_hit < p.ttc_critical);
+            const bool high = (risk >= p.risk_high) || (t_hit < p.ttc_high);
+            const bool med = risk >= p.risk_medium;
+            const float prio = crit ? 3.0f : (high ? 2.0f : (med ? 1.0f : 0.0f));
+            qual = risk >= p.risk_low;
+            key = qual ? 2.0f * prio + risk : risk + KEY_SUB;
+          } else {
+            // stage-2 survivor, ranked by closest-approach proximity
+            qual = true;
+            key = 1.0f - cd2 / safe2;
+          }
+          ++n_emit;
+          if (qual) ++n_qual;
+
+          tc::insert_slot(skey, sidx, sh.k, key, j);
         }
-      }
+      });
     }
     for (int s = 0; s < sh.k; ++s) {
       keys[(long long)i * sh.k + s] = skey[s];

@@ -56,6 +56,15 @@ def detect_and_alerts_fused(state: ObjectState, cfg: SystemConfig,
     )
 
 
+def grid_overflow(index, cfg: SystemConfig) -> torch.Tensor:
+    """[] int64 objects beyond cell_capacity in their bucket (dropped from
+    that cell's candidate lists by index/grid.gather_candidates): the
+    grid path's capacity counter."""
+    sizes = index.starts[1:cfg.num_cells + 1] - index.starts[:cfg.num_cells]
+    return torch.clamp_min(sizes.to(torch.int64) - cfg.grid.cell_capacity,
+                           0).sum()
+
+
 def step_fused(state: ObjectState, generator: torch.Generator | None,
                cfg: SystemConfig) -> tuple[ObjectState, StepOutput]:
     """One scene step: physics, then fused detection and alerts.

@@ -2,7 +2,8 @@
 with ctypes.
 
 The sources under tpu_collide_torch/csrc/ compile into one shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds).
+with a plain C interface (no PyTorch headers, so the build takes seconds):
+one nvcc per .cu file, all started together, then one link.
 The library lands in tpu_collide_torch/_build/, named by a hash of the
 sources and flags, so a process builds it at most once and a changed source
 never loads a stale library. Nothing here runs at import time.
@@ -23,8 +24,7 @@ BUILD_DIR = PKG_DIR / "_build"
 # -fmad=false and no fast math: the kernels then round every operation the
 # way their plain PyTorch versions do
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _sources() -> list[Path]:
@@ -55,16 +55,40 @@ def build_log() -> str:
     return log.read_text() if log.exists() else ""
 
 
+def _run(procs) -> str:
+    """Waits for every (cmd, Popen) and returns their output; raises with
+    the output of the first that failed."""
+    outs = [(cmd, *pr.communicate()) + (pr.returncode,) for cmd, pr in procs]
+    for cmd, out, err, rc in outs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{out}{err}")
+    return "".join(out + err for _, out, err, _ in outs)
+
+
 def _build(so: Path) -> None:
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
-                           f"{res.stdout}{res.stderr}")
-    so.with_suffix(".log").write_text(res.stdout + res.stderr)
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in _sources():
+        if src.suffix != ".cu":
+            continue
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        objs.append(obj)
+    try:
+        log = _run(procs)
+        tmp = BUILD_DIR / f"{tag}.tmp.so"
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        log += _run([(cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text(log)
     os.replace(tmp, so)
 
 
@@ -80,6 +104,11 @@ def load_library() -> ctypes.CDLL:
     lib.tc_fused_topk.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
                                   ci, ci, vp, vp, vp, vp, vp, vp, vp]
     lib.tc_fused_topk.restype = ci
+    lib.tc_fused_predict.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
+                                     ci, ci, vp, vp, vp, vp, vp, vp]
+    lib.tc_fused_predict.restype = ci
+    lib.tc_pred_param_count.argtypes = []
+    lib.tc_pred_param_count.restype = ci
     lib.tc_param_count.argtypes = []
     lib.tc_param_count.restype = ci
     lib.tc_error_string.argtypes = [ci]

@@ -27,12 +27,15 @@ import torch
 
 from tpu_collide_torch.core.config import SystemConfig
 from tpu_collide_torch.core.state import ObjectState
+from tpu_collide_torch.index.grid import cell_coords, flatten_cells
 
 # Sorted per-object record: 16 f32 = 64 bytes, four 16-byte loads in the
 # kernel. sin_h / cos_h are computed once per object here, so the kernel
 # and its plain version read the same values for the 'product' angle form.
+# cls is the trajectory class of the predict mode (0 in the detection
+# modes).
 FIELD_NAMES = ("x", "y", "z", "vx", "vy", "vz", "ax", "ay", "az",
-               "size", "heading", "otype", "sin_h", "cos_h", "pad0", "pad1")
+               "size", "heading", "otype", "sin_h", "cos_h", "cls", "pad1")
 NF = len(FIELD_NAMES)
 FI = {name: i for i, name in enumerate(FIELD_NAMES)}
 
@@ -75,7 +78,10 @@ class CellList:
         return self.cell < self.num_cells
 
 
-def build_cell_list(state: ObjectState, cfg: SystemConfig) -> CellList:
+def build_cell_list(state: ObjectState, cfg: SystemConfig,
+                    cls: torch.Tensor | None = None) -> CellList:
+    """`cls` ([N] trajectory class in state order) rides in the record's
+    cls field for the predict mode; it is 0 when not given."""
     if cfg.stencil_halfwidth != 1:
         raise ValueError(
             "the fused path requires cell_size >= search_radius "
@@ -95,12 +101,14 @@ def build_cell_list(state: ObjectState, cfg: SystemConfig) -> CellList:
     flat = torch.where(state.alive, flat, torch.full_like(flat, num_cells))
     key, order = torch.sort(flat, stable=True)
     heading = state.heading[order]
+    cls_col = (torch.zeros((state.n, 1), dtype=torch.float32, device=dev)
+               if cls is None else cls[order, None].to(torch.float32))
     fields = torch.cat([
         state.pos[order], state.vel[order], state.acc[order],
         state.size[order, None], heading[:, None],
         state.otype[order, None].to(torch.float32),
         torch.sin(heading)[:, None], torch.cos(heading)[:, None],
-        torch.zeros((state.n, 2), dtype=torch.float32, device=dev),
+        cls_col, torch.zeros((state.n, 1), dtype=torch.float32, device=dev),
     ], dim=1).contiguous()
     cell_start = torch.searchsorted(
         key, torch.arange(num_cells + 1, dtype=torch.int32, device=dev),
@@ -113,12 +121,15 @@ def build_cell_list(state: ObjectState, cfg: SystemConfig) -> CellList:
         grid_dims=(nx, ny, nz), is3d=cfg.world.is_3d)
 
 
-def stencil_runs(cl: CellList, rows: torch.Tensor):
+def stencil_runs(cl: CellList, rows: torch.Tensor,
+                 cells: torch.Tensor | None = None):
     """(start, end) [R, S] int64: the S candidate runs (3 in 2D, 9 in 3D)
-    of each sorted row, in ascending sorted order; empty for dead rows and
-    for (dz, dy) outside the grid."""
+    around each row's cell, in ascending sorted order; empty for dead rows
+    and for (dz, dy) outside the grid. `cells` ([R] flat cell ids,
+    num_cells for none) walks the runs around other cells than the rows'
+    own, such as their predicted cells."""
     nx, ny, nz = cl.grid_dims
-    c = cl.cell[rows].to(torch.int64)
+    c = (cl.cell[rows] if cells is None else cells).to(torch.int64)
     alive = c < cl.num_cells
     c = torch.where(alive, c, torch.zeros_like(c))
     cx, cy, cz = c % nx, (c // nx) % ny, c // (nx * ny)
@@ -138,11 +149,13 @@ def stencil_runs(cl: CellList, rows: torch.Tensor):
     return torch.stack(starts, dim=1), torch.stack(ends, dim=1)
 
 
-def stencil_pairs(cl: CellList, rows: torch.Tensor):
-    """(own, cand) int64 [P]: every (row, candidate) pair of the rows' runs,
-    in (row, candidate) ascending order for ascending rows. Self pairs are
-    included. Waits for the device once, for the pair count."""
-    start, end = stencil_runs(cl, rows)
+def stencil_pairs(cl: CellList, rows: torch.Tensor,
+                  cells: torch.Tensor | None = None):
+    """(own, cand) int64 [P]: every (row, candidate) pair of the rows' runs
+    (around `cells` when given, see stencil_runs), in (row, candidate)
+    ascending order for ascending rows. Self pairs are included. Waits for
+    the device once, for the pair count."""
+    start, end = stencil_runs(cl, rows, cells)
     s = start.shape[1]
     ln = (end - start).reshape(-1)
     total = int(ln.sum())
@@ -154,3 +167,11 @@ def stencil_pairs(cl: CellList, rows: torch.Tensor):
             + torch.arange(total, device=dev) - first[run])
     own = rows.to(torch.int64).repeat_interleave(s)[run]
     return own, cand
+
+
+def flat_cells(pos: torch.Tensor, alive: torch.Tensor,
+               cfg: SystemConfig) -> torch.Tensor:
+    """[R] int64 flat cell id (cz*ny + cy)*nx + cx of positions [R, 3], as
+    build_cell_list computes it; num_cells where not alive."""
+    flat = flatten_cells(cell_coords(pos, cfg), cfg).to(torch.int64)
+    return torch.where(alive, flat, torch.full_like(flat, cfg.num_cells))
