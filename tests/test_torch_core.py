@@ -83,7 +83,7 @@ def test_state_converter_round_trip():
     jst = jst.replace(alive=jst.alive.at[5].set(False),
                       oid=jst.oid + 1000)
     d = {f: np.asarray(getattr(jst, f)) for f in FIELDS}
-    st = from_jax_numpy(d)
+    st = from_jax_numpy(d, device="cpu")
     assert st.n == 64
     want_dtypes = dict(pos=torch.float32, vel=torch.float32,
                        acc=torch.float32, heading=torch.float32,
@@ -102,7 +102,7 @@ def test_state_from_numpy_defaults_match_jax():
     from tpu_collide.core.state import state_from_numpy as jsfn
     d = np_fleet(0, 10, 500.0)
     args = [d[f] for f in ("pos", "vel", "acc", "heading", "size", "otype")]
-    jst, st = jsfn(*args), state_from_numpy(*args)
+    jst, st = jsfn(*args), state_from_numpy(*args, device="cpu")
     for f in FIELDS:
         np.testing.assert_array_equal(getattr(st, f).numpy(),
                                       np.asarray(getattr(jst, f)), err_msg=f)

@@ -1,4 +1,4 @@
-"""The slice end to end on the CPU: the port's make_step(cfg,
+"""The fused step end to end on the CPU: the port's make_step(cfg,
 backend='fused') against the JAX package's make_step (the XLA reference
 path) in both detection modes, 2D and 3D; the hot-row top-up and its
 certificate; and the one comparison with the Pallas step itself in
@@ -25,7 +25,7 @@ KEY = 1
 
 
 def _port_step(cfg, st):
-    _, out = tt.make_step(cfg, backend="fused")(
+    _, out = tt.make_step(cfg, backend="fused", device="cpu")(
         st, torch.Generator().manual_seed(0))
     return out
 
@@ -130,18 +130,34 @@ def test_fast_step_equals_pallas_step_interpret():
 
 
 def test_make_step_surface():
+    """make_step keeps the JAX package's signature and default backend;
+    every backend and chunk_size run; a state on another device is refused;
+    with no device named, the entry points go to the card, and without one
+    they raise instead of running on the CPU."""
+    import inspect
+    from tpu_collide_torch.core.device import resolve_device
+    params = list(inspect.signature(tt.make_step).parameters)
+    assert params[:5] == list(inspect.signature(tc.make_step).parameters)[:5]
+    assert inspect.signature(tt.make_step).parameters["backend"].default \
+        == "xla"
     cfg = tt.SystemConfig(num_objects=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.make_step(cfg, backend="xla")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.make_step(cfg, chunk_size=4)
+    st = tt.empty_state(8, device="cpu")
+    for kw in ({}, {"backend": "xla"}, {"chunk_size": 4},
+               {"backend": "fused"}, {"backend": "fused", "chunk_size": 4}):
+        st1, out = tt.make_step(cfg, device="cpu", **kw)(st, torch.Generator())
+        assert int(out.num_alive) == 0 and int(out.alerts.count) == 0, kw
+        assert [f.name for f in dataclasses.fields(out)] == [
+            f.name for f in dataclasses.fields(tc.StepOutput)]
+        assert out.alerts.valid.shape == (cfg.alerts.max_scene_alerts,)
     with pytest.raises(ValueError):
         tt.make_step(cfg, backend="pallas")
-    st = tt.empty_state(8)
     with pytest.raises(ValueError, match="lies on"):
         tt.make_step(cfg, device="meta")(st, None)
-    st1, out = tt.make_step(cfg, device="cpu")(st, torch.Generator())
-    assert int(out.num_alive) == 0 and int(out.alerts.count) == 0
-    assert [f.name for f in dataclasses.fields(out)] == [
-        f.name for f in dataclasses.fields(tc.StepOutput)]
-    assert out.alerts.valid.shape == (cfg.alerts.max_scene_alerts,)
+    if torch.cuda.is_available():
+        assert resolve_device(None) == torch.device(
+            "cuda", torch.cuda.current_device())
+    else:
+        for call in (lambda: resolve_device(None), lambda: tt.make_step(cfg),
+                     lambda: tt.empty_state(8)):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()

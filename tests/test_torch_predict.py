@@ -94,7 +94,7 @@ def _ticks(d, ticks=4, dt=0.1, capacity=16):
     fixture of tests/test_fused_predict.py)."""
     n = d["pos"].shape[0]
     jh = jpred.empty_history(n, capacity)
-    th = tpred.empty_history(n, capacity)
+    th = tpred.empty_history(n, capacity, device="cpu")
     t = 0.0
     for _ in range(ticks):
         t += dt
@@ -243,7 +243,8 @@ def test_history_crosses_over_from_jax():
     d = _with_classes(np_fleet(6, 120, 1500.0), 6)
     d, jh, _ = _ticks(d, ticks=5)
     th = tpred.history_from_jax_numpy(
-        {f: np.asarray(getattr(jh, f)) for f in tpred.HISTORY_FIELDS})
+        {f: np.asarray(getattr(jh, f)) for f in tpred.HISTORY_FIELDS},
+        device="cpu")
     _hist_equal(th, jh)
     jst, st = both_states(d)
     cls = tpred.classify_trajectories(th)

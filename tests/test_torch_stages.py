@@ -110,7 +110,7 @@ def _small_cfg(n, world=1000.0, **detect):
 def _all_pairs(cfg, arrays, mode="precise"):
     """{(i, j): (risk, ttc, distance)} of every ordered pair's refined
     stages 1-4, keyed by the original object index."""
-    st = state_from_numpy(*arrays)
+    st = state_from_numpy(*arrays, device="cpu")
     cl = build_cell_list(st, cfg)
     n = st.n
     own, cand = torch.meshgrid(torch.arange(n), torch.arange(n),
@@ -163,7 +163,8 @@ def test_head_on_probe(mode):
     got = _all_pairs(cfg, _head_on(), mode)
     assert set(got) == {(0, 1), (1, 0)}
     assert abs(got[(0, 1)][1] - 4.7) < 1e-5 and got[(0, 1)][0] > 0.3
-    out = detect_and_alerts_fused(state_from_numpy(*_head_on()), cfg)
+    out = detect_and_alerts_fused(
+        state_from_numpy(*_head_on(), device="cpu"), cfg)
     v = out.alerts.valid.numpy()
     pairs = set(zip(out.alerts.vehicle_oid.numpy()[v].tolist(),
                     out.alerts.other_oid.numpy()[v].tolist()))

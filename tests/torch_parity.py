@@ -64,12 +64,12 @@ def to_torch_cfg(cfg):
 
 
 def both_states(d):
-    """(JAX state, port state) holding the same arrays."""
+    """(JAX state, port state on the CPU) holding the same arrays."""
     jst = jax_state_from_numpy(d["pos"], d["vel"], d["acc"], d["heading"],
                                d["size"], d["otype"], oid=d["oid"],
                                alive=d["alive"])
     return jst, from_jax_numpy(
-        {f: np.asarray(getattr(jst, f)) for f in FIELDS})
+        {f: np.asarray(getattr(jst, f)) for f in FIELDS}, device="cpu")
 
 
 def alert_map(alerts, unordered=True):

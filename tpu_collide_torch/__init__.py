@@ -1,11 +1,14 @@
 """tpu_collide_torch: the PyTorch / CUDA port of tpu-collide.
 
-The fused detection step of `tpu_collide` (integrate, cell-list build, one
-fused broad + narrow phase kernel, refine tail) and its trajectory
-prediction (detect/predict.py, kernels/refine.fused_predict) in PyTorch,
-with the kernels written in CUDA C++ for Hopper (csrc/). The JAX package
-stays the reference the port is checked against; this package imports
-torch and never jax.
+The steps of `tpu_collide` in PyTorch: the reference-shaped step (grid,
+stencil gather, 4-stage detection, alert top-k; `make_step`'s default, with
+`chunk_size` for large fleets), the fused step (cell list, one fused broad +
+narrow phase kernel, refine tail), burst stepping, trajectory prediction
+(detect/predict.py, kernels/refine.fused_predict), the capacity tuners
+(kernels/tune.py) and the block co-sort (kernels/block_sort.py), with the
+kernels written in CUDA C++ for Hopper (csrc/). Entry points run on the
+CUDA card unless given device='cpu'. The JAX package stays the reference
+the port is checked against; this package imports torch and never jax.
 """
 from tpu_collide_torch.core.config import (SystemConfig, WorldConfig,
                                            GridConfig, DetectionConfig,
@@ -14,6 +17,6 @@ from tpu_collide_torch.core.config import (SystemConfig, WorldConfig,
                                            VEHICLE_SIZES)
 from tpu_collide_torch.core.state import (ObjectState, empty_state,
                                           state_from_numpy)
-from tpu_collide_torch.engine import make_step, StepOutput
+from tpu_collide_torch.engine import step, make_step, make_detect, StepOutput
 
 __version__ = "0.1.0"

@@ -12,6 +12,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from tpu_collide_torch.core.device import resolve_device
+
 FIELDS = ("pos", "vel", "acc", "heading", "size", "otype", "alive", "oid")
 
 
@@ -52,7 +54,9 @@ class ObjectState:
 
 
 def empty_state(n: int, device=None) -> ObjectState:
-    """All-dead fleet of capacity n."""
+    """All-dead fleet of capacity n, on the card unless `device` names
+    another."""
+    device = resolve_device(device)
     f3 = lambda: torch.zeros((n, 3), dtype=torch.float32, device=device)
     f1 = lambda: torch.zeros((n,), dtype=torch.float32, device=device)
     return ObjectState(
@@ -65,7 +69,10 @@ def empty_state(n: int, device=None) -> ObjectState:
 
 def state_from_numpy(pos, vel, acc, heading, size, otype, oid=None,
                      alive=None, device=None) -> ObjectState:
+    """The state of the given arrays, on the card unless `device` names
+    another."""
     n = np.shape(pos)[0]
+    device = resolve_device(device)
     f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
     i32 = lambda a: torch.tensor(np.asarray(a, np.int32), device=device)
     return ObjectState(
@@ -81,7 +88,8 @@ def state_from_numpy(pos, vel, acc, heading, size, otype, oid=None,
 
 def from_jax_numpy(d: Mapping[str, np.ndarray], device=None) -> ObjectState:
     """The port's state from the JAX state's fields given as numpy arrays
-    ({'pos': ..., 'vel': ..., ...}, every name of FIELDS)."""
+    ({'pos': ..., 'vel': ..., ...}, every name of FIELDS), on the card unless
+    `device` names another."""
     missing = [f for f in FIELDS if f not in d]
     if missing:
         raise ValueError(f"JAX state fields missing: {missing}")

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from tpu_collide_torch.core.config import SystemConfig
+from tpu_collide_torch.core.device import resolve_device
 from tpu_collide_torch.core.ops import stable_topk
 from tpu_collide_torch.core.state import ObjectState
 from tpu_collide_torch.detect.pipeline import (_norm, _pair_safe_distance,
@@ -61,7 +62,8 @@ class TrajectoryHistory:
 def empty_history(n: int, capacity: int = 16, device=None
                   ) -> TrajectoryHistory:
     """capacity=16 (not the reference's 100): classification only needs the
-    recent window."""
+    recent window. On the card unless `device` names another."""
+    device = resolve_device(device)
     return TrajectoryHistory(
         pos=torch.zeros((n, capacity, 3), dtype=torch.float32, device=device),
         t=torch.full((n, capacity), float("-inf"), dtype=torch.float32,
@@ -74,10 +76,12 @@ def empty_history(n: int, capacity: int = 16, device=None
 def history_from_jax_numpy(d: Mapping[str, np.ndarray], device=None
                            ) -> TrajectoryHistory:
     """The port's history from the JAX TrajectoryHistory's fields given as
-    numpy arrays ({'pos': ..., 't': ..., 'count': ..., 'head': ...})."""
+    numpy arrays ({'pos': ..., 't': ..., 'count': ..., 'head': ...}), on
+    the card unless `device` names another."""
     missing = [f for f in HISTORY_FIELDS if f not in d]
     if missing:
         raise ValueError(f"JAX history fields missing: {missing}")
+    device = resolve_device(device)
     f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
     i32 = lambda a: torch.tensor(np.asarray(a, np.int32), device=device)
     return TrajectoryHistory(pos=f32(d["pos"]), t=f32(d["t"]),

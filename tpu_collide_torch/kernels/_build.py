@@ -111,6 +111,9 @@ def load_library() -> ctypes.CDLL:
     lib.tc_pred_param_count.restype = ci
     lib.tc_param_count.argtypes = []
     lib.tc_param_count.restype = ci
+    ptrs = ctypes.POINTER(vp)
+    lib.tc_co_sort.argtypes = [vp, ci, ci, ci, ptrs, ptrs, vp, vp, vp, vp]
+    lib.tc_co_sort.restype = ci
     lib.tc_error_string.argtypes = [ci]
     lib.tc_error_string.restype = ctypes.c_char_p
     return lib

@@ -15,11 +15,14 @@ import math
 import torch
 
 from tpu_collide_torch.core.config import SystemConfig, VEHICLE_SIZES
+from tpu_collide_torch.core.device import resolve_device
 from tpu_collide_torch.core.state import ObjectState
 
 
 def default_cities(cfg: SystemConfig, device=None) -> torch.Tensor:
-    """[(x, y, radius)] of the reference's five cities."""
+    """[(x, y, radius)] of the reference's five cities, on the card unless
+    `device` names another."""
+    device = resolve_device(device)
     w = cfg.world.hi[0] - cfg.world.lo[0]
     h = cfg.world.hi[1] - cfg.world.lo[1]
     x0, y0 = cfg.world.lo[0], cfg.world.lo[1]
