@@ -14,7 +14,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    also runs through the plain version and must agree
   predict_kernel_vs_plain
                    the CUDA predict kernel against its plain version on one
-                   cell list, all 20 offsets, 20k-object 2D and 3D fleets
+                   cell list, all 20 offsets, bit for bit: 20k-object 2D and
+                   3D fleets, and a dense fleet (dense_fleet) at k = 1, 8
+                   and 16 that fills and wraps the kernel's ring of stage-1
+                   survivors and evicts slots
   predict_path     trajectory prediction at the size of bench.py's predict
                    row: 100k city-skew objects, 4 fused steps each followed
                    by update_history, then _predict_device_fused (k_slots
@@ -75,6 +78,13 @@ XLA_100K_STEPS = 5
 # this distance of the threshold that decides it (m, m/s, s or risk units):
 # the two paths round the same f32 stage math in other orders
 FLIP_MARGIN = 1e-3
+# The predict kernel's ring of stage-1 survivors (QUEUE in
+# csrc/fused_predict.cu) and the warp's width: the dense fleet must drive a
+# run longer than twice the ring, a ring that still holds survivors after a
+# sweep round, and a last round that is not full
+PRED_QUEUE, WARP = 64, 32
+# dense_fleet on the card: objects in the cluster and spread over the world
+DENSE_CLUSTER, DENSE_SPREAD = 3000, 3000
 
 # The card's peaks for the bounds (NVIDIA's H100 SXM data sheet):
 # device memory, and f32 outside the tensor cores (integer compares of the
@@ -233,6 +243,97 @@ def predict_bound(cl, cfg, offs, slots, sub_steps, torch) -> dict:
                + slots.keys.numel() * 8 + slots.emitted.numel() * 4)
     return dict(bound(n_bytes, n_ops), walked=walked, within_radius=inside,
                 hits=hits)
+
+
+def dense_fleet(n_cluster, n_spread, hi, cell_size, seed) -> dict:
+    """numpy arrays of a fleet that crowds one cell: n_cluster objects in a
+    disc (a ball in a 3D world) of 0.45 cell sizes around a cell's centre,
+    heading at the centre at 4-7 m/s, so that a row's run is long, most of
+    it passes stage 1 and many pairs hit; n_spread objects uniform over the
+    world at 5-20 m/s. Sizes are continuous (every pair has its own safe
+    distance), a third of the fleet accelerates at 1-3 m/s^2, and `cls`
+    holds random trajectory classes for callers that keep no history.
+    Nothing stands still: a pair at rest has the same risk at every offset,
+    and which of the tied offsets a merge keeps is not pinned."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n = n_cluster + n_spread
+    is3d = hi[2] > 0.0
+    hi = np.asarray(hi, np.float64)
+    centre = (np.floor(hi / (2 * cell_size)) + 0.5) * cell_size
+    u = rng.normal(size=(n_cluster, 3))
+    u[:, 2] *= is3d
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    r = 0.45 * cell_size * rng.uniform(0.05, 1.0, n_cluster) ** 0.5
+    pos = rng.uniform(0.0, 1.0, (n, 3)) * hi
+    pos[:n_cluster] = centre + u * r[:, None]
+    heading = rng.uniform(0.0, 2 * np.pi, n)
+    speed = rng.uniform(5.0, 20.0, n)
+    vel = np.stack([speed * np.cos(heading), speed * np.sin(heading),
+                    rng.normal(0.0, 3.0, n) * is3d], -1)
+    vel[:n_cluster] = -u * rng.uniform(4.0, 7.0, (n_cluster, 1))
+    acc = np.zeros((n, 3))
+    a = rng.uniform(1.0, 3.0, n) * np.sign(rng.normal(size=n))
+    ang = rng.uniform(0.0, 2 * np.pi, n)
+    acc[2::3, 0] = (a * np.cos(ang))[2::3]
+    acc[2::3, 1] = (a * np.sin(ang))[2::3]
+    if not is3d:
+        pos[:, 2] = 0.0
+    f32 = lambda x: np.asarray(x, np.float32)
+    return dict(pos=f32(pos), vel=f32(vel), acc=f32(acc),
+                heading=f32(np.arctan2(vel[:, 1], vel[:, 0])),
+                size=f32(rng.uniform(1.0, 5.0, n)),
+                otype=rng.integers(0, 4, n).astype(np.int32),
+                alive=np.ones(n, bool), oid=np.arange(n, dtype=np.int32),
+                cls=rng.integers(0, 3, n).astype(np.int32))
+
+
+def predict_edges(cl, cfg, offs, torch) -> dict:
+    """How hard these rows drive the predict kernel's walk: the longest
+    candidate run of any (offset, row), the most stage-1 survivors of one,
+    and, at each offset, for the row with the most survivors among those
+    that lose a tenth or more of their candidates at stage 1, the ring of
+    stage-1 survivors replayed as the kernel fills it (WARP candidates of a
+    run at a time, a sweep round of WARP whenever WARP wait): the most that
+    ever waited, and the sizes of the last rounds."""
+    from tpu_collide_torch.detect.predict import class_advance
+    from tpu_collide_torch.kernels.cell_list import (FI, flat_cells,
+                                                     stencil_runs)
+    from tpu_collide_torch.kernels.fused_detect import _pair_chunks
+    fl = cl.fields
+    rows = torch.arange(cl.n, device=fl.device)
+    r2 = cfg.detect.search_radius ** 2
+    inside = lambda own, cand, pred: (own != cand) & (
+        ((fl[cand, 0:3] - pred[own]) ** 2).sum(dim=1) <= r2)
+    longest_run = most_survivors = most_waiting = 0
+    last_rounds = []
+    for o in range(offs.numel()):
+        pred = class_advance(fl[:, 0:3], fl[:, 3:6], fl[:, 6:9],
+                             fl[:, FI["cls"]], offs[o])
+        cells = flat_cells(pred, cl.alive, cfg)
+        start, end = stencil_runs(cl, rows, cells)
+        longest_run = max(longest_run, int((end - start).max()))
+        passed = torch.zeros(cl.n, dtype=torch.int64, device=fl.device)
+        for own, cand in _pair_chunks(cl, rows, cells):
+            passed += torch.bincount(own[inside(own, cand, pred)],
+                                     minlength=cl.n)
+        most_survivors = max(most_survivors, int(passed.max()))
+        mixed = passed * 10 <= (end - start).sum(dim=1) * 9
+        if not bool(mixed.any()):
+            continue
+        i = int((passed * mixed).argmax())
+        waiting = 0
+        for j0, j1 in zip(start[i].tolist(), end[i].tolist()):
+            cand = torch.arange(j0, j1, device=fl.device)
+            ok = inside(torch.full_like(cand, i), cand, pred).tolist()
+            for b in range(0, j1 - j0, WARP):
+                waiting += sum(ok[b:b + WARP])
+                most_waiting = max(most_waiting, waiting)
+                if waiting >= WARP:
+                    waiting -= WARP
+        last_rounds.append(waiting)
+    return dict(longest_run=longest_run, most_survivors=most_survivors,
+                most_waiting=most_waiting, last_rounds=last_rounds)
 
 
 def risk_map(other, valid, risk, ttc) -> dict:
@@ -433,6 +534,72 @@ def by_key_oid(out, torch) -> list:
     return [x[o] for x in out]
 
 
+def bench_configs():
+    """(100k-2D, 1M-3D): bench.py:337-342 and :364-373."""
+    import tpu_collide_torch as tt
+    from tpu_collide_torch.core.config import (AlertConfig, DetectionConfig,
+                                               GridConfig, WorldConfig)
+    cfg100k = tt.SystemConfig(
+        num_objects=100_000, world=WorldConfig(hi=(10000.0, 10000.0, 0.0)),
+        grid=GridConfig(cell_size=100.0),
+        detect=DetectionConfig(mode="fast", count_checked=False),
+        alerts=AlertConfig(max_scene_alerts=1024, max_alerts_per_object=8))
+    cfg1m = tt.SystemConfig(
+        num_objects=1_000_000,
+        world=WorldConfig(hi=(10000.0, 10000.0, 500.0)),
+        grid=GridConfig(cell_size=50.0),
+        detect=DetectionConfig(mode="fast", search_radius=50.0,
+                               count_checked=False, gate_stage1=True),
+        alerts=AlertConfig(max_scene_alerts=4096))
+    return cfg100k, cfg1m
+
+
+def predict_fleets(base, torch, dev):
+    """The two small fleets the predict kernel is held to its plain version
+    on, in the world of `base`: yields (name, cfg, cell list). 20k city
+    skew with random accelerations and classes, so that every class branch
+    runs; and dense_fleet."""
+    from tpu_collide_torch.core.state import state_from_numpy
+    from tpu_collide_torch.kernels.cell_list import build_cell_list
+    from tpu_collide_torch.sim import generate_fleet
+    cfg = base.replace(num_objects=20_000)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    st = generate_fleet(gen, cfg, "city_skew")
+    zmask = torch.tensor([1.0, 1.0, float(cfg.world.is_3d)], device=dev)
+    st = st.replace(acc=torch.randn(st.pos.shape, generator=gen,
+                                    device=dev) * 0.8 * zmask)
+    cls = torch.randint(0, 3, (st.n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    yield "cityskew", cfg, build_cell_list(st, cfg, cls=cls)
+    d = dense_fleet(DENSE_CLUSTER, DENSE_SPREAD, cfg.world.hi,
+                    cfg.grid.cell_size, seed=13)
+    cfg = cfg.replace(num_objects=DENSE_CLUSTER + DENSE_SPREAD)
+    st = state_from_numpy(d["pos"], d["vel"], d["acc"], d["heading"],
+                          d["size"], d["otype"], device=dev)
+    yield "dense", cfg, build_cell_list(
+        st, cfg, cls=torch.tensor(d["cls"], device=dev))
+
+
+def predict_path_inputs(cfg, torch, dev):
+    """(state, history) of predict_path: a city-skew fleet from seed 5,
+    4 fused steps each followed by a history tick (the fleet moves between
+    ticks, so that the classes are mixed)."""
+    import tpu_collide_torch as tt
+    from tpu_collide_torch.detect.predict import (empty_history,
+                                                  update_history)
+    from tpu_collide_torch.sim import generate_fleet
+    gen = torch.Generator(device=dev).manual_seed(5)
+    state = generate_fleet(gen, cfg, "city_skew")
+    step = tt.make_step(cfg, backend="fused", device=dev)
+    hist = empty_history(cfg.num_objects, device=dev)
+    clock = 0.0
+    for _ in range(4):
+        state, _ = step(state, gen)
+        clock += cfg.sim.dt
+        hist = update_history(hist, state, clock)
+    return state, hist
+
+
 def main() -> None:
     import torch
 
@@ -440,8 +607,7 @@ def main() -> None:
         raise SystemExit("chip_smoke: no CUDA device "
                          "(torch.cuda.is_available() is False)")
     import tpu_collide_torch as tt
-    from tpu_collide_torch.core.config import (AlertConfig, DetectionConfig,
-                                               GridConfig, WorldConfig)
+    from tpu_collide_torch.core.config import DetectionConfig, WorldConfig
     from tpu_collide_torch.core.state import state_from_numpy
     from tpu_collide_torch.engine import detect_and_alerts_fused
     from tpu_collide_torch.kernels import _build
@@ -492,19 +658,7 @@ def main() -> None:
               ptxas=[ln.strip() for ln in _build.build_log().splitlines()
                      if "registers" in ln or "spill" in ln]))
 
-    # bench.py:337-342 (100k-2D) and :364-373 (1M-3D)
-    cfg100k = tt.SystemConfig(
-        num_objects=100_000, world=WorldConfig(hi=(10000.0, 10000.0, 0.0)),
-        grid=GridConfig(cell_size=100.0),
-        detect=DetectionConfig(mode="fast", count_checked=False),
-        alerts=AlertConfig(max_scene_alerts=1024, max_alerts_per_object=8))
-    cfg1m = tt.SystemConfig(
-        num_objects=1_000_000,
-        world=WorldConfig(hi=(10000.0, 10000.0, 500.0)),
-        grid=GridConfig(cell_size=50.0),
-        detect=DetectionConfig(mode="fast", search_radius=50.0,
-                               count_checked=False, gate_stage1=True),
-        alerts=AlertConfig(max_scene_alerts=4096))
+    cfg100k, cfg1m = bench_configs()
     mode_of = {"fast": "hits", "precise": "survivors"}
     err = {"hits": 0.0, "survivors": 0.0}
 
@@ -649,21 +803,15 @@ def main() -> None:
                         dtype=torch.float32, device=dev)
     pred_err = 0.0
     for dim, base in (("2d", cfg100k), ("3d", cfg1m)):
-        cfg = base.replace(num_objects=20_000)
-        gen = torch.Generator(device=dev).manual_seed(11)
-        st = generate_fleet(gen, cfg, "city_skew")
-        # random accelerations and classes, so that every class branch runs
-        zmask = torch.tensor([1.0, 1.0, float(cfg.world.is_3d)], device=dev)
-        st = st.replace(acc=torch.randn(st.pos.shape, generator=gen,
-                                        device=dev) * 0.8 * zmask)
-        cls = torch.randint(0, 3, (st.n,), generator=gen, device=dev,
-                            dtype=torch.int32)
-        cl = build_cell_list(st, cfg, cls=cls)
+        fleets = predict_fleets(base, torch, dev)
+        _, cfg, cl = next(fleets)
         pk = lambda: predict_topk(cl, cfg, offs, K_SLOTS, SUB_STEPS)
         pp = lambda: predict_topk_plain(cl, cfg, offs, K_SLOTS, SUB_STEPS)
         got, want = pk(), pp()
         torch.cuda.synchronize()
         res = compare_pred_slots(got, want, K_SLOTS, torch)
+        if not res["bit_equal"]:
+            raise AssertionError(f"predict kernel, 20k {dim}: not bit-equal")
         pred_err = max(pred_err, res["max_abs_err"])
         emit(dict(phase="predict_kernel_vs_plain",
                   fleet=f"20k_{dim}_cityskew", offsets=offs.numel(),
@@ -671,19 +819,36 @@ def main() -> None:
                   ms=median_ms(pk, torch),
                   plain_ms=median_ms(pp, torch, repeats=3), card=smi))
 
+        # the dense fleet: long runs, a full ring, evicted slots
+        _, cfg, cl = next(fleets)
+        edges = predict_edges(cl, cfg, offs, torch)
+        if edges["longest_run"] <= 2 * PRED_QUEUE \
+                or edges["most_waiting"] <= WARP \
+                or all(r % WARP == 0 for r in edges["last_rounds"]):
+            raise AssertionError(f"dense {dim}: the fleet does not drive the "
+                                 f"kernel's ring: {edges}")
+        for k in (1, 8, K_SLOTS):
+            got = predict_topk(cl, cfg, offs, k, SUB_STEPS)
+            want = predict_topk_plain(cl, cfg, offs, k, SUB_STEPS)
+            torch.cuda.synchronize()
+            res = compare_pred_slots(got, want, k, torch)
+            most = int(got.emitted.max())
+            if not res["bit_equal"] or most <= k:
+                raise AssertionError(
+                    f"dense {dim}, k {k}: bit-equal {res['bit_equal']}, "
+                    f"largest emitted {most}")
+            pred_err = max(pred_err, res["max_abs_err"])
+            emit(dict(phase="predict_kernel_vs_plain", fleet=f"dense_{dim}",
+                      n=cl.n, offsets=offs.numel(), k=k,
+                      sub_steps=SUB_STEPS, **res, largest_emitted=most,
+                      **edges, ms=median_ms(
+                          lambda: predict_topk(cl, cfg, offs, k, SUB_STEPS),
+                          torch), card=smi))
+
     # ---- predict_path: bench.py's predict row (bench.py:400-450) ----
     t_phase = time.perf_counter()
     cfg = cfg100k
-    gen = torch.Generator(device=dev).manual_seed(5)
-    state = generate_fleet(gen, cfg, "city_skew")
-    step = tt.make_step(cfg, backend="fused", device=dev)
-    hist = empty_history(cfg.num_objects, device=dev)
-    clock = 0.0
-    for _ in range(4):
-        # the fleet moves between ticks, so that the classes are mixed
-        state, _ = step(state, gen)
-        clock += cfg.sim.dt
-        hist = update_history(hist, state, clock)
+    state, hist = predict_path_inputs(cfg, torch, dev)
     classes = torch.bincount(classify_trajectories(hist).long(),
                              minlength=3).tolist()
     r_cap = min(cfg.alerts.max_scene_alerts, cfg.num_objects * 32)
@@ -715,6 +880,9 @@ def main() -> None:
     got = predict_topk(cl, cfg, ends, K_SLOTS, SUB_STEPS)
     want = predict_topk_plain(cl, cfg, ends, K_SLOTS, SUB_STEPS)
     res = compare_pred_slots(got, want, K_SLOTS, torch)
+    if not res["bit_equal"]:
+        raise AssertionError("predict kernel, 100k first and last offset: "
+                             "not bit-equal")
     pred_err = max(pred_err, res["max_abs_err"])
     pred_ms = (
         median_ms(lambda: predict_topk(cl, cfg, ends, K_SLOTS, SUB_STEPS),

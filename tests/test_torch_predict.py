@@ -10,7 +10,10 @@ numpy fleets and history ticks.
 History and classes are exact. Predicted risks and ttcs agree within
 rtol = atol = 1e-5 (the port's and JAX's CPU reductions may sum the norms
 in another order); the sets of (object, other) pairs are equal. The CUDA
-kernel is held against its plain version on the card by chip_smoke.py."""
+kernel is held against its plain version on the card by chip_smoke.py; its
+dense fleet (chip_smoke.dense_fleet) is pinned to the JAX package here at a
+small size, and the bound that lets the kernel compare squared distances is
+checked in numpy."""
 import dataclasses
 
 import numpy as np
@@ -33,6 +36,7 @@ from tpu_collide_torch.kernels.cell_list import FI, build_cell_list
 from tpu_collide_torch.kernels.fused_detect import (predict_topk,
                                                     predict_topk_plain)
 from tpu_collide_torch.kernels.refine import fused_predict
+from chip_smoke import PRED_QUEUE, WARP, dense_fleet, predict_edges
 from tests.torch_parity import both_states, np_fleet, to_torch_cfg
 
 torch.set_num_threads(1)
@@ -165,14 +169,24 @@ def _converging_cluster(n=96, seed=1, r_lo=30.0, r_hi=70.0):
     return _cfg((1000.0, 1000.0, 0.0), _ticks(d))
 
 
+def _dense(hi):
+    """chip_smoke.py's dense fleet at a size the CPU takes: 200 objects
+    crowd one cell, 100 are spread over the world."""
+    d = dense_fleet(200, 100, hi, 100.0, seed=13)
+    d.pop("cls")        # the classes come from the history here
+    return _cfg(hi, _ticks(d))
+
+
 FIXTURES = {
     "seed0": lambda: _fleet_with_history(0),
     "seed1": lambda: _fleet_with_history(1),
     "classes": lambda: _fleet_with_history(2, classes=True),
     "3d": _fleet_3d,
     "cluster": _converging_cluster,
+    "dense": lambda: _dense((1500.0, 1500.0, 0.0)),
+    "dense3d": lambda: _dense((600.0, 600.0, 300.0)),
 }
-HORIZON = {"3d": 2.0, "cluster": 10.0}
+HORIZON = {"3d": 2.0, "cluster": 10.0, "dense3d": 2.0}
 _JAX_CACHE = {}
 
 
@@ -320,6 +334,78 @@ def test_fused_predict_matches_jax(name):
     assert predict_topk.launches == launches      # CPU: the plain version
     assert int(got[5]) == 0 and int(got[6]) == 0
     _assert_maps_equal(_np(got[:5]), _jax_predict(name))
+
+
+@pytest.mark.parametrize("name", ["dense", "dense3d"])
+def test_dense_fleet_matches_jax(name):
+    """The dense fleet of chip_smoke.py's predict_kernel_vs_plain, small:
+    it drives what the kernel's walk must get right (a run longer than
+    twice its ring of stage-1 survivors, a ring that holds survivors across
+    a sweep round, a last round that is not full, more hits than slots),
+    and the plain version's answer on it, merged and certified, equals the
+    JAX package's grid path."""
+    cfg, tcfg, st, th = _port_inputs(name)
+    horizon = HORIZON.get(name, 5.0)
+    cls = tpred.classify_trajectories(th)
+    cl = build_cell_list(st, tcfg, cls=cls)
+    offs = torch.tensor(tpred.predict_offsets(horizon, 0.5),
+                        dtype=torch.float32)
+    edges = predict_edges(cl, tcfg, offs, torch)
+    assert edges["longest_run"] > 2 * PRED_QUEUE, edges
+    assert edges["most_waiting"] > WARP, edges
+    assert any(r % WARP for r in edges["last_rounds"]), edges
+    slots = predict_topk_plain(cl, tcfg, offs, 16, 10)
+    assert int(slots.emitted.max()) > 16
+    got = fused_predict(st, th, tcfg, horizon=horizon, step=0.5)
+    assert int(got[5]) == 0 and int(got[6]) == 0
+    assert int(got[7]) > 0, "no slot was evicted; the test is vacuous"
+    _assert_maps_equal(_np(got[:5]), _jax_predict(name))
+
+
+def _sqrt_le_bound(s):
+    """csrc/fused_predict.cu's sqrt_le_bound, expression by expression, in
+    numpy: the largest float32 T with sqrt(T) <= s."""
+    s = np.float32(s)
+    if not s >= 0.0:
+        return s if s != s else np.float32(-1.0)
+    if np.isinf(s):
+        return s
+    a = np.abs(s)
+    up = (a.view(np.int32) + np.int32(1)).view(np.float32)
+    m2 = (0.5 * (np.float64(a) + np.float64(up))) ** 2
+    with np.errstate(over="ignore"):
+        t = np.float32(m2)              # to nearest; then down, as _rd does
+    if np.isinf(t) or np.float64(t) > m2:
+        t = np.nextafter(t, np.float32(-np.inf))
+    return min(t, np.finfo(np.float32).max)
+
+
+def test_sqrt_le_bound_decides_as_the_square_root():
+    """x <= sqrt_le_bound(s) equals sqrt(x) <= s in float32: for random s,
+    the edges of the format, and every x within 6 ulp of s*s and of the
+    bound, NaN, inf and 0 included. The predict kernel relies on it to
+    compare squared distances."""
+    rng = np.random.default_rng(0)
+    f32 = np.float32
+    big = np.finfo(f32).max
+    ss = np.concatenate([
+        rng.uniform(0.0, 200.0, 1500), 10.0 ** rng.uniform(-44, 38.5, 1500),
+        [0.0, -0.0, 1e-45, 3.7e-23, 1.0, 2.0, 4.0, 5.5, 50.0, 100.0,
+         1.8446743e19, 1.8446744e19, big, np.inf, -1.0, np.nan]]).astype(f32)
+    for s in ss:
+        bound = _sqrt_le_bound(s)
+        with np.errstate(over="ignore", invalid="ignore"):
+            xs = [f32(0.0), f32(np.inf), f32(np.nan)]
+            for c in (np.minimum(s * s, big), bound):
+                lo = hi = c
+                xs.append(c)
+                for _ in range(6):
+                    lo = np.nextafter(lo, f32(-np.inf))
+                    hi = np.nextafter(hi, f32(np.inf))
+                    xs += [lo, hi]
+            xs = np.array([x for x in xs if not x < 0.0], f32)
+            np.testing.assert_array_equal(xs <= bound, np.sqrt(xs) <= s,
+                                          err_msg=repr(s))
 
 
 def test_truncation_certificate_harmless():

@@ -27,8 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+def _sources(csrc: Path) -> list[Path]:
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -40,18 +40,18 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path() -> Path:
+def library_path(csrc: Path = CSRC_DIR) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources(csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libtpu_collide_torch_{h.hexdigest()[:16]}.so"
 
 
-def build_log() -> str:
+def build_log(csrc: Path = CSRC_DIR) -> str:
     """nvcc's output (ptxas register and spill report) of the current
     library, or '' before it is built."""
-    log = library_path().with_suffix(".log")
+    log = library_path(csrc).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
@@ -65,12 +65,12 @@ def _run(procs) -> str:
     return "".join(out + err for _, out, err, _ in outs)
 
 
-def _build(so: Path) -> None:
+def _build(so: Path, csrc: Path) -> None:
     BUILD_DIR.mkdir(exist_ok=True)
     tag = f"{so.stem}.{os.getpid()}"
     nvcc = _nvcc()
     objs, procs = [], []
-    for src in _sources():
+    for src in _sources(csrc):
         if src.suffix != ".cu":
             continue
         obj = BUILD_DIR / f"{tag}.{src.stem}.o"
@@ -92,13 +92,19 @@ def _build(so: Path) -> None:
     os.replace(tmp, so)
 
 
-@functools.cache
 def load_library() -> ctypes.CDLL:
-    """The built kernel library, with argtypes declared (every pointer and
-    the stream as c_void_p)."""
-    so = library_path()
+    """The package's kernel library (see open_library)."""
+    return open_library(CSRC_DIR)
+
+
+@functools.cache
+def open_library(csrc: Path) -> ctypes.CDLL:
+    """The kernel library built from the sources in `csrc` (the package's
+    own, or another copy of them to compare with), with argtypes declared
+    (every pointer and the stream as c_void_p)."""
+    so = library_path(csrc)
     if not so.exists():
-        _build(so)
+        _build(so, csrc)
     lib = ctypes.CDLL(str(so))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.tc_fused_topk.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
