@@ -10,7 +10,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    one cell list, 20k-object 2D and 3D fleets, both modes
   probe            the head-on pair (ttc 4.70 s) through the fused path
   main_path        make_step(cfg, backend="fused") at the configurations of
-                   bench.py's flagship rows; at 100k the step's detection
+                   bench.py's flagship rows, every certificate 0 (a precise
+                   cell adopts survivor_k and the survivor cap by bench.py's
+                   rule, certified_precise); at 100k the step's detection
                    also runs through the plain version and must agree
   predict_kernel_vs_plain
                    the CUDA predict kernel against its plain version on one
@@ -38,9 +40,12 @@ Phases, one JSON line each (any failure raises and exits non-zero):
   burst            make_burst_step(cfg, 8) against 8 single steps from the
                    same generator seed: bit-equal states
   detect_probe     make_detect on the head-on pair: ttc 4.70
-  cosort_vs_plain  the CUDA co-sort on the cell-list build's operands
-                   (1M-3D: 14 operands, 100k-2D: 11) against its plain
-                   version (bit-equal) and torch.sort plus gathers
+  cosort_vs_plain  the CUDA co-sort against its plain version, bit for
+                   bit: at lengths around its tile and past 2^17 and 2^20,
+                   with keys full of ties, all equal, and with INT32_MAX,
+                   with 0 and 32 payloads; then on the cell-list build's
+                   operands (1M-3D: 14 operands, 100k-2D: 11), there also
+                   against torch.sort plus gathers; the launches per sort
 
 The line before the last lists the kernels with their launches (the
 detection kernels' on main_path, the predict kernel's on predict_path, the
@@ -520,6 +525,33 @@ def cosort_operands(state, cfg, torch) -> list:
     return [key.contiguous()] + [c.contiguous() for c in cols]
 
 
+# cosort_vs_plain's lengths beside the two fleets: around one tile of the
+# kernel (4096 pairs) and two, one past 2^17, and one past 2^20 (padded to
+# 2^21, where the last merge's global stages no longer fit one pass)
+COSORT_EDGE_N = (1, 2, 4095, 4096, 4097, 8192, (1 << 17) + 1, (1 << 20) + 1)
+
+
+def cosort_edge_operands(n, keys, n_pay, seed, torch, dev) -> list:
+    """An int32 key of length n and n_pay payloads (f32 and i32 in turns).
+    keys: 'cells' (cell-id-like: about 7 rows a key, so ties everywhere),
+    'equal' (every key tied: any deviation from the network moves a row) or
+    'max' (a third of the keys INT32_MAX, which tie with the pads)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    small = torch.randint(0, max(2, n // 7), (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    if keys == "equal":
+        key = torch.full_like(small, 3)
+    elif keys == "max":
+        key = torch.where(torch.rand(n, generator=gen, device=dev) < 0.3,
+                          torch.full_like(small, 2 ** 31 - 1), small % 5)
+    else:
+        key = small
+    pays = [torch.randn(n, generator=gen, device=dev) if f % 2 == 0
+            else torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+            for f in range(n_pay)]
+    return [key] + pays
+
+
 def library_sort(ops, torch) -> list:
     """The yardstick: torch.sort of the key and one gather per payload."""
     key, perm = torch.sort(ops[0])
@@ -532,6 +564,83 @@ def by_key_oid(out, torch) -> list:
     o = torch.sort(out[-1], stable=True).indices
     o = o[torch.sort(out[0][o], stable=True).indices]
     return [x[o] for x in out]
+
+
+def certified_precise(cfg, run):
+    """bench.py's rule for a precise cell whose certificate is not 0
+    (bench.py:199-226, adopt_k): raise survivor_k by the counted shortfall,
+    up to the kernel's K_MAX, and double the survivor cap alongside (the
+    certificate also counts survivors beyond the cap), at most twice. The
+    fleet comes from a seed and detection never feeds back into physics, so
+    every attempt replays the same trajectories. `run(cfg)` returns (worst
+    alert_overflow, result). Returns (the configuration adopted, its worst
+    alert_overflow, its result, attempts); a cell that stays uncertified
+    comes back with its certificate for the caller to refuse."""
+    from tpu_collide_torch.kernels.fused_detect import K_MAX
+    worst, res = run(cfg)
+    tries = 1
+    while worst > 0 and tries <= 2:
+        cfg = cfg.replace(detect=dataclasses.replace(
+            cfg.detect,
+            survivor_k=min(K_MAX, cfg.detect.survivor_k + worst),
+            precise_survivor_cap=2 * cfg.survivor_cap))
+        worst, res = run(cfg)
+        tries += 1
+    return cfg, worst, res, tries
+
+
+def fused_steps(cfg, dist, seed, torch, dev):
+    """2 + REPEATS steps of make_step(cfg, backend="fused") on the fleet of
+    `seed`, the last REPEATS timed with CUDA events: (worst alert_overflow,
+    (state, last output, worst overflow, median ms per step, the detection
+    kernel's launches)). Fails unless every step launched the kernel
+    once."""
+    import tpu_collide_torch as tt
+    from tpu_collide_torch.kernels.fused_detect import fused_topk
+    from tpu_collide_torch.sim import generate_fleet
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = generate_fleet(gen, cfg, dist)
+    step = tt.make_step(cfg, backend="fused", device=dev)
+    worst_of = torch.zeros((), dtype=torch.int32, device=dev)
+    worst_ao = torch.zeros((), dtype=torch.int32, device=dev)
+    events = []
+    fused_topk.launches = 0
+    for i in range(2 + REPEATS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, out = step(state, gen)
+        b.record()
+        if i >= 2:
+            events.append((a, b))
+        worst_of = torch.maximum(worst_of, out.overflow)
+        worst_ao = torch.maximum(worst_ao, out.alert_overflow)
+    torch.cuda.synchronize()
+    n_launch = fused_topk.launches
+    if n_launch != 2 + REPEATS:
+        raise AssertionError(f"{n_launch} kernel launches in "
+                             f"{2 + REPEATS} fused steps")
+    ms = statistics.median(a.elapsed_time(b) for a, b in events)
+    return int(worst_ao), (state, out, int(worst_of), ms, n_launch)
+
+
+def main_path_runs():
+    """(name, cfg, fleet distribution) of main_path: bench.py's flagship
+    rows."""
+    import tpu_collide_torch as tt
+    from tpu_collide_torch.core.config import DetectionConfig
+    cfg100k, cfg1m = bench_configs()
+    return (
+        # bench.py:248-249, the 1k headline (city skew)
+        ("1k_precise_cityskew",
+         tt.SystemConfig(num_objects=1000,
+                         detect=DetectionConfig(mode="precise")),
+         "city_skew"),
+        ("100k_2d_fast", cfg100k, "uniform"),                # bench.py:337
+        ("100k_2d_precise", cfg100k.replace(detect=DetectionConfig(
+            mode="precise", count_checked=False)), "uniform"),  # :355-356
+        ("1m_3d_fast", cfg1m, "uniform"),                    # bench.py:364
+    )
 
 
 def bench_configs():
@@ -559,7 +668,7 @@ def predict_fleets(base, torch, dev):
     on, in the world of `base`: yields (name, cfg, cell list). 20k city
     skew with random accelerations and classes, so that every class branch
     runs; and dense_fleet."""
-    from tpu_collide_torch.core.state import state_from_numpy
+    from tpu_collide_torch.core.state import conform_fleet, state_from_numpy
     from tpu_collide_torch.kernels.cell_list import build_cell_list
     from tpu_collide_torch.sim import generate_fleet
     cfg = base.replace(num_objects=20_000)
@@ -574,8 +683,9 @@ def predict_fleets(base, torch, dev):
     d = dense_fleet(DENSE_CLUSTER, DENSE_SPREAD, cfg.world.hi,
                     cfg.grid.cell_size, seed=13)
     cfg = cfg.replace(num_objects=DENSE_CLUSTER + DENSE_SPREAD)
-    st = state_from_numpy(d["pos"], d["vel"], d["acc"], d["heading"],
-                          d["size"], d["otype"], device=dev)
+    st = conform_fleet(state_from_numpy(
+        d["pos"], d["vel"], d["acc"], d["heading"], d["size"], d["otype"],
+        device=dev), cfg)
     yield "dense", cfg, build_cell_list(
         st, cfg, cls=torch.tensor(d["cls"], device=dev))
 
@@ -608,7 +718,7 @@ def main() -> None:
                          "(torch.cuda.is_available() is False)")
     import tpu_collide_torch as tt
     from tpu_collide_torch.core.config import DetectionConfig, WorldConfig
-    from tpu_collide_torch.core.state import state_from_numpy
+    from tpu_collide_torch.core.state import conform_fleet, state_from_numpy
     from tpu_collide_torch.engine import detect_and_alerts_fused
     from tpu_collide_torch.kernels import _build
     from tpu_collide_torch.kernels.cell_list import build_cell_list
@@ -627,8 +737,11 @@ def main() -> None:
                                                         slot_count)
     from tpu_collide_torch.engine import (_chunked_detect_extract,
                                           detect_and_alerts, make_burst_step)
-    from tpu_collide_torch.kernels.block_sort import (ceil_pow2, co_sort,
+    from tpu_collide_torch.kernels.block_sort import (MAX_PAYLOADS,
+                                                      ceil_pow2, co_sort,
                                                       co_sort_plain,
+                                                      kernel_launches,
+                                                      launch_plan,
                                                       network_stages)
     from tpu_collide_torch.kernels.refine import fused_predict
     from tpu_collide_torch.kernels.tune import suggest_cell_capacity
@@ -687,11 +800,11 @@ def main() -> None:
         cfg = tt.SystemConfig(num_objects=2,
                               world=WorldConfig(hi=(200.0, 200.0, 0.0)),
                               detect=DetectionConfig(mode=det_mode))
-        st = state_from_numpy(
+        st = conform_fleet(state_from_numpy(
             np.array([[0, 0, 0], [100, 0, 0]], np.float32),
             np.array([[10, 0, 0], [-10, 0, 0]], np.float32),
             np.zeros((2, 3), np.float32), np.array([0.0, np.pi]),
-            np.full(2, 2.0), np.zeros(2, np.int32), device=dev)
+            np.full(2, 2.0), np.zeros(2, np.int32), device=dev), cfg)
         got = alert_dict(detect_and_alerts_fused(st, cfg).alerts)
         if set(got) != {(0, 1), (1, 0)} or any(
                 abs(v[1] - 4.7) > 1e-5 for v in got.values()):
@@ -700,58 +813,35 @@ def main() -> None:
                   ttc=[v[1] for v in got.values()]))
 
     # ---- main_path ----
-    runs = (
-        # bench.py:248-249, the 1k headline (city skew)
-        ("1k_precise_cityskew",
-         tt.SystemConfig(num_objects=1000,
-                         detect=DetectionConfig(mode="precise")),
-         "city_skew"),
-        ("100k_2d_fast", cfg100k, "uniform"),                # bench.py:337
-        ("100k_2d_precise", cfg100k.replace(detect=DetectionConfig(
-            mode="precise", count_checked=False)), "uniform"),  # :355-356
-        ("1m_3d_fast", cfg1m, "uniform"),                    # bench.py:364
-    )
+    runs = main_path_runs()
     launches = {"hits": 0, "survivors": 0}
     kernel_ms, bounds = {}, {}
     for seed, (name, cfg, dist) in enumerate(runs):
-        gen = torch.Generator(device=dev).manual_seed(100 + seed)
-        state = generate_fleet(gen, cfg, dist)
-        step = tt.make_step(cfg, backend="fused", device=dev)
-        worst_of = torch.zeros((), dtype=torch.int32, device=dev)
-        worst_ao = torch.zeros((), dtype=torch.int32, device=dev)
-        events = []
-        fused_topk.launches = 0
-        for i in range(2 + REPEATS):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            state, out = step(state, gen)
-            b.record()
-            if i >= 2:
-                events.append((a, b))
-            worst_of = torch.maximum(worst_of, out.overflow)
-            worst_ao = torch.maximum(worst_ao, out.alert_overflow)
-        torch.cuda.synchronize()
-        n_launch = fused_topk.launches
-        if n_launch != 2 + REPEATS:
-            raise AssertionError(f"{name}: {n_launch} kernel launches in "
-                                 f"{2 + REPEATS} steps")
         mode = mode_of[cfg.detect.mode]
+        drive = lambda c: fused_steps(c, dist, 100 + seed, torch, dev)
+        if mode == "survivors":
+            cfg, worst_ao, res, attempts = certified_precise(cfg, drive)
+        else:
+            (worst_ao, res), attempts = drive(cfg), 1
+        state, out, worst_of, ms_per_step, n_launch = res
         launches[mode] += n_launch
         check_output(out, cfg, torch)
-        if int(worst_of) != 0:
-            raise AssertionError(f"{name}: overflow {int(worst_of)}")
+        if worst_of != 0 or worst_ao != 0:
+            raise AssertionError(
+                f"{name}: overflow {worst_of}, alert_overflow {worst_ao} at "
+                f"survivor_k {cfg.detect.survivor_k}, survivor cap "
+                f"{cfg.survivor_cap}, after {attempts} attempts")
         if int(out.num_alive) != cfg.num_objects:
             raise AssertionError(f"{name}: num_alive {int(out.num_alive)}")
         line = dict(
             phase="main_path", config=name, distribution=dist,
-            ms_per_step=statistics.median(a.elapsed_time(b)
-                                          for a, b in events),
-            steps_timed=REPEATS, kernel_launches=n_launch,
+            ms_per_step=ms_per_step, steps_timed=REPEATS,
+            kernel_launches=n_launch, attempts=attempts,
+            survivor_k=cfg.detect.survivor_k, survivor_cap=cfg.survivor_cap,
             num_risks=int(out.num_risks), alerts=int(out.alerts.count),
             num_pairs_checked=int(out.num_pairs_checked),
             max_risk=float(out.max_risk),
-            worst_overflow=int(worst_of), worst_alert_overflow=int(worst_ao),
+            worst_overflow=worst_of, worst_alert_overflow=worst_ao,
             card=smi)
 
         # the kernel alone at this configuration's shapes, with its plain
@@ -1042,13 +1132,13 @@ def main() -> None:
               card=smi))
 
     # ---- detect_probe: make_detect on the head-on pair ----
-    st = state_from_numpy(
+    cfg2 = tt.SystemConfig(num_objects=2,
+                           world=WorldConfig(hi=(200.0, 200.0, 0.0)))
+    st = conform_fleet(state_from_numpy(
         np.array([[0, 0, 0], [100, 0, 0]], np.float32),
         np.array([[10, 0, 0], [-10, 0, 0]], np.float32),
         np.zeros((2, 3), np.float32), np.array([0.0, np.pi]),
-        np.full(2, 2.0), np.zeros(2, np.int32), device=dev)
-    cfg2 = tt.SystemConfig(num_objects=2,
-                           world=WorldConfig(hi=(200.0, 200.0, 0.0)))
+        np.full(2, 2.0), np.zeros(2, np.int32), device=dev), cfg2)
     ttc = float(tt.make_detect(cfg2, device=dev)(st).ttc.min())
     if abs(ttc - 4.7) > 1e-5:
         raise AssertionError(f"detect_probe: ttc {ttc}")
@@ -1061,6 +1151,34 @@ def main() -> None:
         gen = torch.Generator(device=dev).manual_seed(400 + seed)
         sort_ops[name] = cosort_operands(generate_fleet(gen, cfg, "uniform"),
                                          cfg, torch)
+    bits = lambda x: x.view(torch.int32)
+    # lengths around the kernel's tile and past 2^17 and 2^20, keys with
+    # many ties, all equal, and with INT32_MAX, without payloads and with
+    # the most the kernel takes: bit-equal to the plain version
+    edge_cases = 0
+    for n in COSORT_EDGE_N:
+        for keys in ("cells", "equal", "max"):
+            for n_pay in (0, MAX_PAYLOADS):
+                ops = cosort_edge_operands(n, keys, n_pay, 500 + edge_cases,
+                                           torch, dev)
+                got, want = co_sort(ops), co_sort_plain(ops)
+                torch.cuda.synchronize()
+                if not all(torch.equal(bits(a), bits(b))
+                           for a, b in zip(got, want)):
+                    raise AssertionError(
+                        f"cosort_vs_plain: n {n}, {keys} keys, {n_pay} "
+                        "payloads: kernel and plain version differ")
+                edge_cases += 1
+    launches_per_sort = {n: kernel_launches(n) for n in COSORT_EDGE_N}
+    for n, count in launches_per_sort.items():
+        if count != len(launch_plan(max(2, ceil_pow2(n)))):
+            raise AssertionError(f"co_sort: {count} launches at n {n}, the "
+                                 "plan has another number")
+    emit(dict(phase="cosort_vs_plain", cases=edge_cases, bit_equal=True,
+              lengths=list(COSORT_EDGE_N), keys=["cells", "equal", "max"],
+              payloads=[0, MAX_PAYLOADS],
+              launches_per_sort=launches_per_sort, card=smi))
+
     co_sort.launches = 0
     sorted_ops = {name: co_sort(ops) for name, ops in sort_ops.items()}
     torch.cuda.synchronize()
@@ -1071,7 +1189,6 @@ def main() -> None:
     for name, ops in sort_ops.items():
         got = sorted_ops[name]
         want = co_sort_plain(ops)
-        bits = lambda x: x.view(torch.int32)
         if not all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want)):
             raise AssertionError(f"cosort_vs_plain {name}: kernel and plain "
                                  "version differ")
@@ -1096,7 +1213,8 @@ def main() -> None:
             sort_ms = line
         emit(dict(phase="cosort_vs_plain", operands=name, n=n,
                   n_operands=len(ops), bit_equal=True,
-                  keys_equal_library=True, rows_equal_library=True, **line,
+                  keys_equal_library=True, rows_equal_library=True,
+                  launches_per_sort=kernel_launches(n), **line,
                   card=smi))
 
     # no single PyTorch call computes a per-object top-k over a

@@ -96,3 +96,17 @@ def from_jax_numpy(d: Mapping[str, np.ndarray], device=None) -> ObjectState:
     return state_from_numpy(d["pos"], d["vel"], d["acc"], d["heading"],
                             d["size"], d["otype"], oid=d["oid"],
                             alive=d["alive"], device=device)
+
+
+def conform_fleet(state: ObjectState, cfg) -> ObjectState:
+    """A fleet taken from the host, brought to the config's contract (the
+    2D part of tpu_collide.core.state.conform_fleet): a 2D world treats z,
+    vz and az as exactly 0 on the fused path, so they are zeroed and both
+    backends see the same data. The JAX function's oid-range check has no
+    counterpart: the port keeps oids as int32 beside the records, so every
+    int32 oid is exact."""
+    if cfg.world.is_3d:
+        return state
+    flat = lambda x: torch.cat([x[:, :2], torch.zeros_like(x[:, 2:])], dim=1)
+    return state.replace(pos=flat(state.pos), vel=flat(state.vel),
+                         acc=flat(state.acc))

@@ -120,6 +120,9 @@ def open_library(csrc: Path) -> ctypes.CDLL:
     ptrs = ctypes.POINTER(vp)
     lib.tc_co_sort.argtypes = [vp, ci, ci, ci, ptrs, ptrs, vp, vp, vp, vp]
     lib.tc_co_sort.restype = ci
+    if hasattr(lib, "tc_co_sort_launches"):   # not in older copies of csrc
+        lib.tc_co_sort_launches.argtypes = [ci]
+        lib.tc_co_sort_launches.restype = ci
     lib.tc_error_string.argtypes = [ci]
     lib.tc_error_string.restype = ctypes.c_char_p
     return lib

@@ -20,6 +20,12 @@ CUDA device and counts the launch in `co_sort.launches`; for tensors on the
 CPU it runs `co_sort_plain`, which runs the network stage by stage as
 reshape-and-where passes over all operands, as the JAX function's
 cross-block `_xla_stage` does.
+
+The CUDA kernel groups the stages into passes over tiles of 2^TILE_BITS
+(key, position) pairs: `launch_plan` lists its passes and
+`strided_tile_index` is the index map of the strided tiles that run the
+stages j >= tile of a merge; both are tested on the CPU, the kernel itself
+on the card (chip_smoke.py).
 """
 from __future__ import annotations
 
@@ -31,6 +37,47 @@ INT32_MAX = 2 ** 31 - 1
 MAX_PAYLOADS = 32            # csrc/block_sort.cu MAX_PAYLOADS
 MAX_PAD = 1 << 30            # the kernel's largest padded length
 PAYLOAD_DTYPES = (torch.float32, torch.int32)
+
+
+TILE_BITS = 12               # csrc/block_sort.cu TB: log2 pairs per tile
+STAGE_BITS_MAX = 8           # csrc/block_sort.cu HB_MAX: stage bits a pass
+
+
+def strided_tile_index(block, slot, lo_bit: int, hb: int,
+                       tile_bits: int = TILE_BITS):
+    """The global index of slot `slot` of tile `block` in the pass that runs
+    the stages along index bits [lo_bit, lo_bit + hb), lo_bit >= tile_bits
+    (ints or integer arrays). A tile holds every value of those hb bits
+    (slot bits run..tile_bits-1) and of the run = tile_bits - hb lowest
+    index bits (slot bits 0..run-1: 2^run consecutive pairs); the block
+    number supplies the mid = lo_bit - run bits between them and the bits
+    above lo_bit + hb. So a tile holds the partner e ^ j of each of its
+    elements at every stage it runs, and the tiles partition the range."""
+    run = tile_bits - hb
+    mid = lo_bit - run
+    return (((block >> mid) << (lo_bit + hb)) | ((slot >> run) << lo_bit)
+            | ((block & ((1 << mid) - 1)) << run) | (slot & ((1 << run) - 1)))
+
+
+def launch_plan(npad: int, tile_bits: int = TILE_BITS,
+                stage_bits_max: int = STAGE_BITS_MAX) -> list:
+    """The kernel's passes over npad = 2^p elements, in order:
+    ("prefix",): every stage with k <= tile; then for each merge k = 2^L
+    above the tile ("strided", L, lo_bit, hb): its stages along bits
+    lo_bit + hb - 1 .. lo_bit, all of them in one pass where L - tile_bits
+    <= stage_bits_max; and ("tile", L): its stages j < tile. The last pass
+    also writes the sorted keys and gathers the payloads."""
+    plan = [("prefix",)]
+    L = tile_bits + 1
+    while (1 << L) <= npad:
+        hi = L
+        while hi > tile_bits:
+            hb = min(stage_bits_max, hi - tile_bits)
+            hi -= hb
+            plan.append(("strided", L, hi, hb))
+        plan.append(("tile", L))
+        L += 1
+    return plan
 
 
 def ceil_pow2(n: int) -> int:
@@ -94,18 +141,36 @@ def co_sort(ops, block_elems: int | None = None,
 co_sort.launches = 0
 
 
+def kernel_launches(n: int) -> int:
+    """The device launches one co_sort of n > 0 elements makes, as the built
+    library counts them (len(launch_plan(npad)))."""
+    from tpu_collide_torch.kernels._build import load_library
+    return load_library().tc_co_sort_launches(max(2, ceil_pow2(n)))
+
+
 def _launch(ops) -> tuple:
     from tpu_collide_torch.kernels._build import load_library
 
     n = ops[0].shape[0]
     dev = ops[0].device
-    ops = [x.contiguous() for x in ops]
-    outs = [torch.empty_like(x) for x in ops]
+    ops = [x if x.is_contiguous() else x.contiguous() for x in ops]
     if n == 0:
-        return tuple(outs)
+        return tuple(torch.empty_like(x) for x in ops)
+    # one allocation for the outputs of each type (at 100k the host's time
+    # to set a sort up exceeds the card's time to run it): every output is
+    # a row of one of the two
+    is_int = [x.dtype == torch.int32 for x in ops]
+    n_int = sum(is_int)
+    ints = iter(torch.empty((n_int, n), dtype=torch.int32,
+                            device=dev).unbind(0))
+    floats = iter(torch.empty((len(ops) - n_int, n), dtype=torch.float32,
+                              device=dev).unbind(0))
+    outs = [next(ints if i else floats) for i in is_int]
     npad = max(2, ceil_pow2(n))
-    keys = torch.empty((npad,), dtype=torch.int32, device=dev)
-    pos = torch.empty((npad,), dtype=torch.int32, device=dev)
+    # one buffer of npad (key, position) pairs; the C interface takes its
+    # two halves
+    scratch = torch.empty((2 * npad,), dtype=torch.int32, device=dev)
+    keys, pos = scratch[:npad], scratch[npad:]
     n_pay = len(ops) - 1
     src = (ctypes.c_void_p * max(1, n_pay))(
         *[x.data_ptr() for x in ops[1:]])

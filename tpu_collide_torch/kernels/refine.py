@@ -17,7 +17,10 @@ prediction's (the port of tpu_collide/kernels/refine.py).
 
 The recomputation uses the stage functions of detect/pipeline.py, so alert
 and predicted-risk values follow the reference path's math. The alert
-buffer always has `max_scene_alerts` entries.
+buffer always has `max_scene_alerts` entries. Every selection (hot rows,
+scene top-A, survivor compaction) takes ties by the lower flat index, as
+jax.lax.top_k does (core/ops.topk_low_index), so a cap that binds on equal
+keys keeps the same entries in every run.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ import torch
 
 from tpu_collide_torch.alerts.extract import AlertBatch, compute_priority
 from tpu_collide_torch.core.config import SystemConfig
-from tpu_collide_torch.core.ops import stable_topk
+from tpu_collide_torch.core.ops import stable_topk, topk_low_index
 from tpu_collide_torch.detect.pipeline import (_dist_at_time,
                                                _fast_first_crossing, _norm,
                                                _pair_safe_distance,
@@ -139,7 +142,7 @@ def refine_rows(fo, fc, oid_o, oid_c, alive_o, alive_c, cfg: SystemConfig,
 @dataclasses.dataclass(frozen=True)
 class FusedSceneResult:
     alerts: AlertBatch
-    num_checked: torch.Tensor     # [] int64 stage-1 pairs (-1: not counted)
+    num_checked: torch.Tensor     # [] int32 stage-1 pairs (-1: not counted)
     num_risks: torch.Tensor       # [] int32 per-direction detected risks
     max_risk: torch.Tensor        # [] f32
     alert_overflow: torch.Tensor  # [] int32 qualifying pairs (fast) or
@@ -191,7 +194,7 @@ def _hot_topup(cl: CellList, cfg: SystemConfig, qual: torch.Tensor, k: int):
     hot = cl.alive & (qual > k)
     hot_rank = torch.where(hot, qual.to(torch.float32),
                            torch.full_like(qual, -1, dtype=torch.float32))
-    top_q, hot_rows = torch.topk(hot_rank, min(H, m))
+    top_q, hot_rows = topk_low_index(hot_rank, min(H, m))
     hot_valid = top_q > 0.0
     covered = torch.zeros((m,), dtype=torch.bool, device=qual.device)
     covered[hot_rows] = hot_valid
@@ -229,7 +232,7 @@ def fused_scene_fast(cl: CellList, cfg: SystemConfig,
                       torch.full_like(keys, KEY_NONE))
     allk = torch.cat([sel.reshape(-1), hkey])
     a = min(cfg.alerts.max_scene_alerts, allk.numel())
-    top_key, top_i = torch.topk(allk, a)
+    top_key, top_i = topk_low_index(allk, a)
     valid = top_key >= 0.0                       # qualifying keys only
     mk = m * k
     flat_slot = torch.clamp(top_i, max=mk - 1)
@@ -250,7 +253,7 @@ def fused_scene_fast(cl: CellList, cfg: SystemConfig,
     zero = torch.zeros_like(s.qual)
     return FusedSceneResult(
         alerts=alerts,
-        num_checked=s.checked,
+        num_checked=s.checked.to(torch.int32),
         num_risks=torch.where(own, s.emitted, zero).sum(dtype=torch.int32),
         max_risk=slot_risk.max() if slot_risk.numel() else keys.new_zeros(()),
         alert_overflow=torch.where(
@@ -271,7 +274,9 @@ def fused_scene_precise(cl: CellList, cfg: SystemConfig,
     occupied = (idx >= 0) & own[:, None]
     sel = torch.where(occupied, keys, torch.full_like(keys, KEY_NONE))
     cap = min(cfg.survivor_cap, m * k)
-    top_key, top_flat = torch.topk(sel.reshape(-1), cap)
+    # the cap is a large share of the slots: a full stable sort is quicker
+    # here than a top-k of that size
+    top_key, top_flat = stable_topk(sel.reshape(-1), cap)
     svalid = top_key >= 0.0                 # survivor keys lie in [0, 1]
     own_slot = top_flat // k
     cand_idx = idx.reshape(-1)[top_flat]
@@ -292,7 +297,8 @@ def fused_scene_precise(cl: CellList, cfg: SystemConfig,
     keep = hit & (ref.risk >= cfg.alerts.risk_low)
     rank = torch.where(keep, ref.priority.to(torch.float32) * 2.0 + ref.risk,
                        torch.full_like(ref.risk, -1.0))
-    top_rank, sel_i = torch.topk(rank, min(cfg.alerts.max_scene_alerts, cap))
+    top_rank, sel_i = topk_low_index(
+        rank, min(cfg.alerts.max_scene_alerts, cap))
     ref_a = RefinedPairs(**{f.name: getattr(ref, f.name)[sel_i]
                             for f in dataclasses.fields(RefinedPairs)})
     alerts = _alert_batch(top_rank >= 0.0, cl.oid[own_slot][sel_i], ref_a,
@@ -304,7 +310,7 @@ def fused_scene_precise(cl: CellList, cfg: SystemConfig,
                                     dtype=torch.int32)
     return FusedSceneResult(
         alerts=alerts,
-        num_checked=s.checked,
+        num_checked=s.checked.to(torch.int32),
         num_risks=hit.sum(dtype=torch.int32),
         max_risk=torch.where(hit, ref.risk, zero).max(),
         alert_overflow=slot_overflow + torch.clamp_min(n_surv - cap, 0),
