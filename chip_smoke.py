@@ -6,14 +6,28 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 
   device           the card, and nvidia-smi's name and power limit
   build            nvcc builds tpu_collide_torch/csrc into a shared library
+  detect_plan      the detection kernel's launch plan (lanes per object,
+                   blocks, threads, shared memory) as the library makes it
+                   against kernels/fused_detect.launch_plan
   kernel_vs_plain  the CUDA fused_topk against its plain PyTorch version on
-                   one cell list, 20k-object 2D and 3D fleets, both modes
+                   one cell list, bit for bit, 2D and 3D, both modes: a
+                   20k-object city-skew fleet (its blocks span the ends of
+                   cell rows and its objects sit in the edge cells of the
+                   world in every direction), the same fleet with a fifth of
+                   the objects dead, a dense fleet (dense_fleet) at k = 1, 8,
+                   16, 17, 24 and 32, whose candidate lists run to thousands
+                   and whose rows emit more pairs than they have slots, a
+                   50k uniform fleet (with main_path's fleets these take
+                   every width of the kernel's launch plan), 5 objects, and
+                   100 objects that are all dead
   probe            the head-on pair (ttc 4.70 s) through the fused path
   main_path        make_step(cfg, backend="fused") at the configurations of
                    bench.py's flagship rows, every certificate 0 (a precise
                    cell adopts survivor_k and the survivor cap by bench.py's
-                   rule, certified_precise); at 100k the step's detection
-                   also runs through the plain version and must agree
+                   rule, certified_precise); the kernel bit-equal to its
+                   plain version on each stepped fleet; at 100k the step's
+                   detection also runs through the plain version and must
+                   agree
   predict_kernel_vs_plain
                    the CUDA predict kernel against its plain version on one
                    cell list, all 20 offsets, bit for bit: 20k-object 2D and
@@ -54,6 +68,7 @@ is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import statistics
@@ -90,6 +105,11 @@ FLIP_MARGIN = 1e-3
 PRED_QUEUE, WARP = 64, 32
 # dense_fleet on the card: objects in the cluster and spread over the world
 DENSE_CLUSTER, DENSE_SPREAD = 3000, 3000
+# slot counts the detection kernel is held to on the dense fleet: one, the
+# defaults' range, the reference's most (16), and past it up to the port's
+DENSE_K = (1, 8, 16, 17, 24, 32)
+# bench.py's cap on an adopted survivor_k (bench.py:186)
+BENCH_K_MAX = 16
 
 # The card's peaks for the bounds (NVIDIA's H100 SXM data sheet):
 # device memory, and f32 outside the tensor cores (integer compares of the
@@ -159,14 +179,17 @@ def compare_pred_slots(got, want, k, torch) -> dict:
 
 
 def compare_slots(got, want, k, torch) -> dict:
-    """Detection kernel slots against plain slots: compare_pred_slots, and
-    the checked and qualifying counters exact."""
+    """Detection kernel slots against plain slots: compare_pred_slots, the
+    checked and qualifying counters exact, and keys and indices equal bit
+    for bit on every row, rows that emitted more than k included."""
     if int(got.checked) != int(want.checked):
         raise AssertionError(f"checked {int(got.checked)} != "
                              f"{int(want.checked)}")
     if not torch.equal(got.qual, want.qual):
         raise AssertionError("qual differs")
     res = compare_pred_slots(got, want, k, torch)
+    if not res["bit_equal"]:
+        raise AssertionError("slots are not bit-equal")
     return dict(checked=int(got.checked), emitted=res.pop("emitted"),
                 qual=int(got.qual.sum()), **res)
 
@@ -569,20 +592,19 @@ def by_key_oid(out, torch) -> list:
 def certified_precise(cfg, run):
     """bench.py's rule for a precise cell whose certificate is not 0
     (bench.py:199-226, adopt_k): raise survivor_k by the counted shortfall,
-    up to the kernel's K_MAX, and double the survivor cap alongside (the
+    up to bench.py's cap of 16, and double the survivor cap alongside (the
     certificate also counts survivors beyond the cap), at most twice. The
     fleet comes from a seed and detection never feeds back into physics, so
     every attempt replays the same trajectories. `run(cfg)` returns (worst
     alert_overflow, result). Returns (the configuration adopted, its worst
     alert_overflow, its result, attempts); a cell that stays uncertified
     comes back with its certificate for the caller to refuse."""
-    from tpu_collide_torch.kernels.fused_detect import K_MAX
     worst, res = run(cfg)
     tries = 1
     while worst > 0 and tries <= 2:
         cfg = cfg.replace(detect=dataclasses.replace(
             cfg.detect,
-            survivor_k=min(K_MAX, cfg.detect.survivor_k + worst),
+            survivor_k=min(BENCH_K_MAX, cfg.detect.survivor_k + worst),
             precise_survivor_cap=2 * cfg.survivor_cap))
         worst, res = run(cfg)
         tries += 1
@@ -663,6 +685,78 @@ def bench_configs():
     return cfg100k, cfg1m
 
 
+def with_slots(cfg, mode, k):
+    """cfg with k slots per object in the detection mode `mode`."""
+    if mode == "hits":
+        return cfg.replace(alerts=dataclasses.replace(
+            cfg.alerts, max_alerts_per_object=k))
+    return cfg.replace(detect=dataclasses.replace(cfg.detect, survivor_k=k))
+
+
+def detect_fleets(base, det_mode, torch, dev):
+    """The small fleets the detection kernel is held to its plain version
+    on, in the world of `base`: yields (name, cfg, cell list). 20k city
+    skew; the same fleet with every fifth object dead; dense_fleet; 50k
+    uniform (the four get 16, 16, 32 and 8 lanes per object; main_path's
+    fleets get 32, 4 and 2); 5 objects; and 100 objects, all dead."""
+    from tpu_collide_torch.core.state import conform_fleet, state_from_numpy
+    from tpu_collide_torch.kernels.cell_list import build_cell_list
+    from tpu_collide_torch.sim import generate_fleet
+    cfg = base.replace(num_objects=20_000, detect=dataclasses.replace(
+        base.detect, mode=det_mode, count_checked=True))
+    st = generate_fleet(torch.Generator(device=dev).manual_seed(7), cfg,
+                        "city_skew")
+    yield "cityskew", cfg, build_cell_list(st, cfg)
+    st = st.replace(alive=torch.arange(st.n, device=dev) % 5 != 0)
+    yield "dead", cfg, build_cell_list(st, cfg)
+    d = dense_fleet(DENSE_CLUSTER, DENSE_SPREAD, cfg.world.hi,
+                    cfg.grid.cell_size, seed=13)
+    cfg = cfg.replace(num_objects=DENSE_CLUSTER + DENSE_SPREAD)
+    st = conform_fleet(state_from_numpy(
+        d["pos"], d["vel"], d["acc"], d["heading"], d["size"], d["otype"],
+        device=dev), cfg)
+    yield "dense", cfg, build_cell_list(st, cfg)
+    cfg = cfg.replace(num_objects=50_000)
+    st = generate_fleet(torch.Generator(device=dev).manual_seed(9), cfg,
+                        "uniform")
+    yield "uniform50k", cfg, build_cell_list(st, cfg)
+    for name, n in (("five", 5), ("alldead", 100)):
+        cfg = cfg.replace(num_objects=n)
+        st = generate_fleet(torch.Generator(device=dev).manual_seed(3), cfg,
+                            "uniform")
+        if name == "alldead":
+            st = st.replace(alive=torch.zeros_like(st.alive))
+        yield name, cfg, build_cell_list(st, cfg)
+
+
+def walk_edges(cl) -> dict:
+    """How hard a cell list drives the detection kernel's walk: the alive
+    objects in the first and last cell of each axis (their stencils are cut
+    by the world's edge), the blocks whose own objects lie in more than one
+    row of cells, the lanes the launch gives an own object, and the longest
+    candidate list."""
+    import torch
+    from tpu_collide_torch.kernels.cell_list import stencil_runs
+    from tpu_collide_torch.kernels.fused_detect import launch_plan
+    nx, ny, nz = cl.grid_dims
+    c = cl.cell[cl.alive].long()
+    cx, cy, cz = c % nx, (c // nx) % ny, c // (nx * ny)
+    edge = {f"{ax}_{end}": int((v == at).sum())
+            for ax, v, n in (("x", cx, nx), ("y", cy, ny), ("z", cz, nz))
+            if n > 1 for end, at in (("first", 0), ("last", n - 1))}
+    row = torch.where(cl.alive, cl.cell // nx, torch.full_like(cl.cell, -1))
+    plan = launch_plan(cl.n, 1)
+    span = plan["threads"] // plan["width"]
+    row = torch.nn.functional.pad(row, (0, (-cl.n) % span), value=-1)
+    row = row.view(-1, span)
+    lo = torch.where(row >= 0, row, row.max() + 1).min(dim=1).values
+    start, end = stencil_runs(cl, torch.arange(cl.n, device=cl.cell.device))
+    return dict(objects_in_edge_cells=edge,
+                blocks_across_row_ends=int((row.max(dim=1).values > lo).sum()),
+                lanes_per_object=plan["width"],
+                longest_candidate_list=int((end - start).sum(dim=1).max()))
+
+
 def predict_fleets(base, torch, dev):
     """The two small fleets the predict kernel is held to its plain version
     on, in the world of `base`: yields (name, cfg, cell list). 20k city
@@ -730,11 +824,10 @@ def main() -> None:
                                                   update_history)
     from tpu_collide_torch.engine import grid_overflow
     from tpu_collide_torch.index.grid import build_grid
-    from tpu_collide_torch.kernels.fused_detect import (fused_topk,
-                                                        fused_topk_plain,
-                                                        predict_topk,
-                                                        predict_topk_plain,
-                                                        slot_count)
+    from tpu_collide_torch.kernels.fused_detect import (
+        PLAN_FIELDS, fused_topk, fused_topk_plain,
+        launch_plan as detect_plan, predict_topk, predict_topk_plain,
+        slot_count)
     from tpu_collide_torch.engine import (_chunked_detect_extract,
                                           detect_and_alerts, make_burst_step)
     from tpu_collide_torch.kernels.block_sort import (MAX_PAYLOADS,
@@ -775,25 +868,60 @@ def main() -> None:
     mode_of = {"fast": "hits", "precise": "survivors"}
     err = {"hits": 0.0, "survivors": 0.0}
 
-    # ---- kernel_vs_plain: 20k-object fleets, one cell list each ----
+    # the launch plan of the detection kernel as the library makes it and as
+    # kernels/fused_detect.launch_plan mirrors it
+    plans = {}
+    for n, k in ((1, 1), (1000, 8), (6000, 32), (20_000, 8), (33_792, 8),
+                 (67_584, 8), (100_000, 8), (100_000, 12), (1_000_000, 4)):
+        out = (ctypes.c_int * 5)()
+        _build.load_library().tc_fused_topk_plan(n, k, out)
+        want = detect_plan(n, k)
+        if list(out)[:4] != [want[f] for f in PLAN_FIELDS]:
+            raise AssertionError(f"fused_topk plan at n {n}, k {k}: library "
+                                 f"{list(out)}, Python {want}")
+        plans[f"n{n}_k{k}"] = dict(want, blocks_per_sm=out[4])
+    emit(dict(phase="detect_plan", plans=plans))
+
+    # ---- kernel_vs_plain: small fleets, one cell list each ----
+    widths = set()     # lanes per own object of every launch held to plain
     for dim, base in (("2d", cfg100k), ("3d", cfg1m)):
         for det_mode, mode in mode_of.items():
-            cfg = base.replace(num_objects=20_000, detect=dataclasses.replace(
-                base.detect, mode=det_mode, count_checked=True))
-            gen = torch.Generator(device=dev).manual_seed(7)
-            st = generate_fleet(gen, cfg, "city_skew")
-            cl = build_cell_list(st, cfg)
-            got = fused_topk(cl, cfg, mode)
-            want = fused_topk_plain(cl, cfg, mode)
-            torch.cuda.synchronize()
-            res = compare_slots(got, want, slot_count(cfg, mode), torch)
-            err[mode] = max(err[mode], res["max_abs_err"])
-            emit(dict(phase="kernel_vs_plain", fleet=f"20k_{dim}_cityskew",
-                      mode=mode, k=slot_count(cfg, mode), **res,
-                      ms=median_ms(lambda: fused_topk(cl, cfg, mode), torch),
-                      plain_ms=median_ms(
-                          lambda: fused_topk_plain(cl, cfg, mode), torch),
-                      card=smi))
+            for fleet, cfg0, cl in detect_fleets(base, det_mode, torch, dev):
+                edges = walk_edges(cl)
+                widths.add(edges["lanes_per_object"])
+                if fleet == "cityskew" and (
+                        min(edges["objects_in_edge_cells"].values()) == 0
+                        or edges["blocks_across_row_ends"] == 0):
+                    raise AssertionError(f"{fleet} {dim}: the fleet does not "
+                                         f"reach every edge: {edges}")
+                if fleet == "dense" \
+                        and edges["longest_candidate_list"] < DENSE_CLUSTER:
+                    raise AssertionError(f"{fleet} {dim}: no long candidate "
+                                         f"list: {edges}")
+                dead = cl.n - int(cl.n_alive)
+                if (fleet in ("dead", "alldead")) != (dead > 0):
+                    raise AssertionError(f"{fleet} {dim}: {dead} dead")
+                for k in (DENSE_K if fleet == "dense"
+                          else (slot_count(cfg0, mode),)):
+                    cfg = with_slots(cfg0, mode, k)
+                    got = fused_topk(cl, cfg, mode)
+                    want = fused_topk_plain(cl, cfg, mode)
+                    torch.cuda.synchronize()
+                    res = compare_slots(got, want, k, torch)
+                    most = int(got.emitted.max())
+                    if fleet == "dense" and most <= k:
+                        raise AssertionError(f"dense {dim}, k {k}: largest "
+                                             f"emitted {most}")
+                    err[mode] = max(err[mode], res["max_abs_err"])
+                    emit(dict(
+                        phase="kernel_vs_plain", fleet=f"{fleet}_{dim}",
+                        n=cl.n, dead=dead, mode=mode, k=k, **res,
+                        largest_emitted=most, **edges,
+                        ms=median_ms(lambda: fused_topk(cl, cfg, mode),
+                                     torch),
+                        plain_ms=median_ms(
+                            lambda: fused_topk_plain(cl, cfg, mode), torch,
+                            repeats=3), card=smi))
 
     # ---- probe: head-on pair, 100 m apart closing at 20 m/s ----
     for det_mode in mode_of:
@@ -848,6 +976,7 @@ def main() -> None:
         # version on the same cell list
         cl = build_cell_list(state, cfg)
         k = slot_count(cfg, mode)
+        widths.add(detect_plan(cl.n, k)["width"])
         got, want = fused_topk(cl, cfg, mode), fused_topk_plain(cl, cfg, mode)
         res = compare_slots(got, want, k, torch)
         err[mode] = max(err[mode], res["max_abs_err"])
@@ -887,6 +1016,10 @@ def main() -> None:
                 note="scene budget raised so it does not bind; ordered "
                      "pairs equal"))
         emit(line)
+
+    if widths != {2, 4, 8, 16, 32}:
+        raise AssertionError(f"detection kernel held to its plain version "
+                             f"at {sorted(widths)} lanes per object only")
 
     # ---- predict_kernel_vs_plain: 20k fleets, one cell list, all offsets --
     offs = torch.tensor(predict_offsets(HORIZON, PRED_STEP),

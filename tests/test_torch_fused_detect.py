@@ -114,3 +114,150 @@ def test_plain_survivors_match_pallas_interpret(is3d):
         prow = int(np.flatnonzero(toid == o)[0])
         tset = {int(toid[c]) for c in s.idx[prow].numpy() if c >= 0}
         assert jset == tset, o
+
+
+# ---- what the CUDA kernel's launch is planned by, on the host -------------
+
+def _plan_by_enumeration(n, k):
+    """The fewest lanes per object of 2 .. 32 with which the fleet fills
+    GRID_MIN blocks (32 when it fills them with none), by trying each."""
+    from tpu_collide_torch.kernels.fused_detect import GRID_MIN, THREADS
+    for width in (2, 4, 8, 16, 32):
+        span = THREADS // width
+        if n // span >= GRID_MIN or width == 32:
+            return dict(width=width, blocks=-(-n // span), threads=THREADS,
+                        smem=span * k * 8)
+
+
+@pytest.mark.parametrize("n", [1, 31, 1000, 6000, 20_000, 33_791, 33_792,
+                               67_583, 67_584, 100_000, 135_167, 135_168,
+                               1_000_000])
+def test_launch_plan_spreads_a_fleet_over_the_card(n):
+    from tpu_collide_torch.kernels.fused_detect import launch_plan
+    for k in (1, 8, 32):
+        plan = launch_plan(n, k)
+        assert plan == _plan_by_enumeration(n, k)
+        span = plan["threads"] // plan["width"]
+        assert (plan["blocks"] - 1) * span < n <= plan["blocks"] * span
+
+
+@pytest.mark.parametrize("width", [2, 4, 8, 16, 32])
+@pytest.mark.parametrize("is3d", [False, True])
+def test_group_walk_visits_each_candidate_once(is3d, width):
+    """The stride of a group's lanes through an object's concatenated runs
+    (the kernel's settle) against a numpy enumeration of stencil_runs: lane
+    gl takes the candidates gl, gl + width, ... of the concatenation, in
+    order, so every candidate is visited once."""
+    from tpu_collide_torch.kernels.cell_list import stencil_runs
+    from tpu_collide_torch.kernels.fused_detect import group_walk
+    cfg, d = _fleet(is3d, n=300)
+    _, st = both_states(d)
+    cl = build_cell_list(st, to_torch_cfg(cfg))
+    start, end = (t.numpy() for t in stencil_runs(cl, torch.arange(cl.n)))
+    assert start.shape[1] == (9 if is3d else 3)
+    assert (end - start).sum(axis=1).max() > 2 * width
+    for i in range(cl.n):
+        want = np.concatenate([np.arange(a, b)
+                               for a, b in zip(start[i], end[i])])
+        lanes = group_walk(start[i].tolist(), end[i].tolist(), width)
+        assert len(lanes) == width
+        for gl, seen in enumerate(lanes):
+            np.testing.assert_array_equal(seen, want[gl::width])
+
+
+def test_param_block_follows_the_config():
+    """The cached ctypes parameter block equals kernel_params(cfg), also
+    for a config that differs from a cached one in one field."""
+    import dataclasses
+    from tpu_collide_torch.kernels.fused_detect import (PARAM_NAMES,
+                                                        kernel_params,
+                                                        param_block)
+    cfg = to_torch_cfg(jax_cfg(100))
+    other = cfg.replace(detect=dataclasses.replace(cfg.detect,
+                                                   search_radius=80.0))
+    same = to_torch_cfg(jax_cfg(100))
+    for _ in range(2):      # the second round comes from the cache
+        for c in (cfg, other, same):
+            want = kernel_params(c)
+            assert list(param_block(c)) == [want[name]
+                                            for name in PARAM_NAMES]
+    assert param_block(cfg) is param_block(cfg)
+    assert list(param_block(cfg)) == list(param_block(same))
+    assert list(param_block(cfg)) != list(param_block(other))
+    assert kernel_params(cfg)["r2"] == 10000.0
+    assert kernel_params(other)["r2"] == 6400.0
+
+
+def test_launch_refuses_wrong_tensors():
+    from tpu_collide_torch.kernels.fused_detect import _check_inputs
+    dev = torch.device("cpu")
+    good = torch.zeros((4, 16), dtype=torch.float32)
+    _check_inputs("fused_topk", dev, (("fields", good, torch.float32,
+                                       (4, 16)),))
+    for bad in (good.double(), good[:, :8], good.t().contiguous().t(),
+                torch.zeros((4, 16), dtype=torch.float32, device="meta")):
+        with pytest.raises(ValueError, match="fields must be a contiguous"):
+            _check_inputs("fused_topk", dev, (("fields", bad, torch.float32,
+                                               (4, 16)),))
+
+
+def _dense_cell_list(mode, k):
+    """A fleet with a crowd in one cell (chip_smoke.dense_fleet, small):
+    rows that emit far more pairs than they have slots."""
+    import dataclasses
+    import chip_smoke as cs
+    import tpu_collide_torch as tt
+    from tpu_collide_torch.core.state import conform_fleet, state_from_numpy
+    cfg = tt.SystemConfig(num_objects=160, world=tt.WorldConfig(
+        hi=(2000.0, 2000.0, 0.0)))
+    cfg = cs.with_slots(cfg.replace(detect=dataclasses.replace(
+        cfg.detect, mode="fast" if mode == "hits" else "precise")), mode, k)
+    d = cs.dense_fleet(80, 80, cfg.world.hi, cfg.grid.cell_size, seed=13)
+    st = conform_fleet(state_from_numpy(
+        d["pos"], d["vel"], d["acc"], d["heading"], d["size"], d["otype"],
+        device="cpu"), cfg)
+    return cfg, build_cell_list(st, cfg)
+
+
+@pytest.mark.parametrize("k", [1, 16, 32])
+@pytest.mark.parametrize("mode", ["hits", "survivors"])
+def test_plain_slots_are_the_k_best_of_the_total_order(mode, k):
+    """fused_topk_plain on rows with emitted > k against a numpy brute
+    force: of each row's emitted pairs the k first by (key descending,
+    candidate sorted index ascending), and exact counts."""
+    from tpu_collide_torch.kernels.cell_list import stencil_pairs
+    from tpu_collide_torch.kernels.fused_detect import (_pair_math,
+                                                        kernel_params)
+    cfg, cl = _dense_cell_list(mode, k)
+    got = fused_topk_plain(cl, cfg, mode)
+    own, cand = stencil_pairs(cl, torch.arange(cl.n))
+    ok1, emit, qual, key = _pair_math(
+        cl.fields[own], cl.fields[cand], own != cand, kernel_params(cfg),
+        cl.is3d, mode == "hits", cfg.detect.angle_form == "product")
+    own, cand, key = (t[emit].numpy() for t in (own, cand, key))
+    assert int(got.checked) == int(ok1.sum())
+    np.testing.assert_array_equal(got.emitted.numpy(),
+                                  np.bincount(own, minlength=cl.n))
+    assert (got.emitted > k).sum() >= 30     # eviction is driven
+    for i in range(cl.n):
+        mine = np.flatnonzero(own == i)
+        order = sorted(mine, key=lambda t: (-key[t], cand[t]))[:k]
+        want_idx = np.full(k, -1, np.int32)
+        want_key = np.full(k, KEY_NONE, np.float32)
+        want_idx[:len(order)] = cand[order]
+        want_key[:len(order)] = key[order]
+        np.testing.assert_array_equal(got.idx[i].numpy(), want_idx)
+        np.testing.assert_array_equal(got.keys[i].numpy(), want_key)
+
+
+def test_slot_count_reaches_32():
+    """The port's kernels keep up to 32 slots per object (the JAX package
+    asserts k <= 16)."""
+    import dataclasses
+    from tpu_collide_torch.kernels.fused_detect import K_MAX, slot_count
+    cfg = to_torch_cfg(jax_cfg(100))
+    at = lambda k: cfg.replace(detect=dataclasses.replace(cfg.detect,
+                                                          survivor_k=k))
+    assert K_MAX == 32 and slot_count(at(32), "survivors") == 32
+    with pytest.raises(ValueError, match="outside 1..32"):
+        slot_count(at(33), "survivors")

@@ -463,7 +463,7 @@ def test_predict_topk_plain_chunking_and_slots():
     assert (a.keys[:, :, :-1] >= a.keys[:, :, 1:]).all()
     assert int(a.emitted.sum()) > 0
     with pytest.raises(ValueError):
-        predict_topk(cl, tcfg, offs, 17, 10)
+        predict_topk(cl, tcfg, offs, 33, 10)   # past K_MAX = 32
 
 
 def test_predict_device_paths_agree_with_jax():

@@ -7,7 +7,7 @@
 
 namespace tc {
 
-constexpr int K_MAX = 16;
+constexpr int K_MAX = 32;  // slots of an object, in shared memory
 constexpr float KEY_NONE = -3.0f;
 constexpr float KEY_SUB = -2.0f;
 

@@ -110,6 +110,9 @@ def open_library(csrc: Path) -> ctypes.CDLL:
     lib.tc_fused_topk.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
                                   ci, ci, vp, vp, vp, vp, vp, vp, vp]
     lib.tc_fused_topk.restype = ci
+    if hasattr(lib, "tc_fused_topk_plan"):    # not in older copies of csrc
+        lib.tc_fused_topk_plan.argtypes = [ci, ci, ctypes.POINTER(ci)]
+        lib.tc_fused_topk_plan.restype = None
     lib.tc_fused_predict.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
                                      ci, ci, vp, vp, vp, vp, vp, vp]
     lib.tc_fused_predict.restype = ci

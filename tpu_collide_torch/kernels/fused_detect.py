@@ -12,7 +12,7 @@ offsets):
       emitted == qual == survivors. The sampled sweep runs afterwards on
       the compacted survivors (kernels/refine.py).
 
-Each object keeps k slots (k <= 16) ordered by key descending, then
+Each object keeps k slots (k <= 32) ordered by key descending, then
 candidate sorted index ascending; an empty slot holds (KEY_NONE, -1).
 Slot keys are exact f32 values (the TPU kernel quantized them to
 1/KEY_Q = 1.22e-4 to pack a lane index beside them), and the per-object
@@ -30,6 +30,7 @@ same for the predict mode.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 
@@ -44,7 +45,7 @@ from tpu_collide_torch.kernels.cell_list import (CellList, FI, NF, flat_cells,
 MODES = ("hits", "survivors")
 KEY_NONE = -3.0          # key of an empty slot
 KEY_SUB = -2.0           # sub-threshold hits key at risk + KEY_SUB
-K_MAX = 16               # slot arrays of the kernel hold at most 16 entries
+K_MAX = 32               # slots of the kernels' shared memory per object
 
 # Order of the f32 constants handed to the kernel (csrc/fused_detect.cu
 # reads them in this order).
@@ -116,23 +117,114 @@ def fused_topk(cl: CellList, cfg: SystemConfig, mode: str = "hits") -> Slots:
 fused_topk.launches = 0
 
 
-def _launch(cl: CellList, cfg: SystemConfig, mode: str, k: int) -> Slots:
-    from tpu_collide_torch.kernels._build import load_library
+# ---- the kernel's launch plan and walk, mirrored in Python ---------------
+# The constants of csrc/fused_detect.cu: threads of a block, the fewest
+# lanes an own object gets, and the blocks a launch should have.
+THREADS = 256
+WIDTH_MIN, GRID_MIN = 2, 1056
+PLAN_FIELDS = ("width", "blocks", "threads", "smem")
 
-    n = cl.n
-    dev = cl.fields.device
-    nx, ny, nz = cl.grid_dims
-    for name, t, dtype, shape in (
-            ("fields", cl.fields, torch.float32, (n, NF)),
-            ("cell", cl.cell, torch.int32, (n,)),
-            ("cell_start", cl.cell_start, torch.int32,
-             (cl.num_cells + 1,))):
+
+def launch_plan(n: int, k: int) -> dict:
+    """The launch of the kernel for n objects with k slots each, as
+    tc_fused_topk makes it (integer for integer): `width` lanes per own
+    object, the fewest of WIDTH_MIN .. 32 with which the fleet fills GRID_MIN
+    blocks of THREADS threads (few lanes share a round's instructions among
+    the many objects of a warp; a small fleet needs more lanes per object
+    to spread over the card); a block owns THREADS / width consecutive
+    sorted objects and keeps their slots in dynamic shared memory."""
+    width = WIDTH_MIN
+    while width < 32 and n * width < GRID_MIN * THREADS:
+        width *= 2
+    span = THREADS // width
+    return dict(width=width, blocks=(n + span - 1) // span, threads=THREADS,
+                smem=span * k * 8)
+
+
+def group_walk(first: list, end: list, group: int) -> list:
+    """The candidates the `group` lanes of one own object visit, per lane
+    and in the lane's order: a lane strides through the object's runs
+    [first[r], end[r]), concatenated, `group` candidates at a time (the
+    kernel's settle)."""
+    runs, lanes = len(first), []
+    for gl in range(group):
+        seen, r, pos, lim = [], 0, first[0] + gl, end[0]
+        while True:
+            while r < runs and pos >= lim:
+                over = pos - lim
+                r += 1
+                if r < runs:
+                    pos, lim = first[r] + over, end[r]
+            if r >= runs:
+                break
+            seen.append(pos)
+            pos += group
+        lanes.append(seen)
+    return lanes
+
+
+def _block_cache(names, params_of):
+    """-> block(cfg): params_of(cfg) in the order of `names` as the ctypes
+    f32 array the kernels take, made once per config object. The configs
+    are frozen, and an entry holds its config, so that the config's id
+    stays its own: another config, equal or not, gets a block of its own."""
+    cache = {}
+
+    def block(cfg: SystemConfig):
+        hit = cache.get(id(cfg))
+        if hit is None or hit[0] is not cfg:
+            if len(cache) >= 64:
+                cache.clear()
+            p = params_of(cfg)
+            hit = cache[id(cfg)] = (cfg, (ctypes.c_float * len(names))(
+                *[p[name] for name in names]))
+        return hit[1]
+    return block
+
+
+param_block = _block_cache(PARAM_NAMES, kernel_params)
+_CHECKED_LIBS: set = set()
+
+
+def _library():
+    """The kernel library, its parameter counts checked once."""
+    from tpu_collide_torch.kernels._build import load_library
+    lib = load_library()
+    if lib not in _CHECKED_LIBS:
+        if lib.tc_param_count() != len(PARAM_NAMES) \
+                or lib.tc_pred_param_count() != len(PRED_PARAM_NAMES):
+            raise RuntimeError("csrc/fused_detect.cu, csrc/fused_predict.cu "
+                               "and PARAM_NAMES / PRED_PARAM_NAMES disagree")
+        _CHECKED_LIBS.add(lib)
+    return lib
+
+
+def _on_device(dev):
+    """A context in which `dev` is the current CUDA device; nothing to
+    switch where it already is."""
+    if torch.cuda.current_device() == dev.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def _check_inputs(who: str, dev, tensors) -> None:
+    for name, t, dtype, shape in tensors:
         if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
                 or not t.is_contiguous():
             raise ValueError(
-                f"fused_topk: {name} must be a contiguous {dtype} tensor of "
+                f"{who}: {name} must be a contiguous {dtype} tensor of "
                 f"shape {shape} on {dev}, got {t.dtype} {tuple(t.shape)} on "
                 f"{t.device}")
+
+
+def _launch(cl: CellList, cfg: SystemConfig, mode: str, k: int) -> Slots:
+    n = cl.n
+    dev = cl.fields.device
+    nx, ny, nz = cl.grid_dims
+    _check_inputs("fused_topk", dev, (
+        ("fields", cl.fields, torch.float32, (n, NF)),
+        ("cell", cl.cell, torch.int32, (n,)),
+        ("cell_start", cl.cell_start, torch.int32, (cl.num_cells + 1,))))
     count = cfg.detect.count_checked
     keys = torch.empty((n, k), dtype=torch.float32, device=dev)
     idx = torch.empty((n, k), dtype=torch.int32, device=dev)
@@ -140,20 +232,15 @@ def _launch(cl: CellList, cfg: SystemConfig, mode: str, k: int) -> Slots:
     qual = torch.empty((n,), dtype=torch.int32, device=dev)
     checked = (torch.zeros((), dtype=torch.int64, device=dev) if count
                else torch.full((), -1, dtype=torch.int64, device=dev))
-    p = kernel_params(cfg)
-    params = (ctypes.c_float * len(PARAM_NAMES))(
-        *[p[name] for name in PARAM_NAMES])
-    lib = load_library()
-    if lib.tc_param_count() != len(PARAM_NAMES):
-        raise RuntimeError("csrc/fused_detect.cu and PARAM_NAMES disagree")
-    with torch.cuda.device(dev):
+    lib = _library()
+    with _on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.tc_fused_topk(
             cl.fields.data_ptr(), cl.cell.data_ptr(),
             cl.cell_start.data_ptr(), n, nx, ny, nz, int(cl.is3d), k,
             int(mode == "hits"), int(count),
             int(cfg.detect.angle_form == "product"),
-            ctypes.cast(params, ctypes.c_void_p),
+            ctypes.cast(param_block(cfg), ctypes.c_void_p),
             keys.data_ptr(), idx.data_ptr(), emitted.data_ptr(),
             qual.data_ptr(), checked.data_ptr(), stream)
     if rc != 0:
@@ -396,49 +483,34 @@ def predict_topk(cl: CellList, cfg: SystemConfig, offsets: torch.Tensor,
 predict_topk.launches = 0
 
 
+_pred_param_block = _block_cache(PRED_PARAM_NAMES, pred_params)
+
+
 def _launch_predict(cl: CellList, cfg: SystemConfig, offsets: torch.Tensor,
                     k: int, sub_steps: int) -> PredSlots:
-    from tpu_collide_torch.kernels._build import load_library
-
     n = cl.n
     dev = cl.fields.device
     n_off = offsets.numel()
     nx, ny, nz = cl.grid_dims
-    for name, t, dtype, shape in (
-            ("fields", cl.fields, torch.float32, (n, NF)),
-            ("cell_start", cl.cell_start, torch.int32,
-             (cl.num_cells + 1,)),
-            ("offsets", offsets, torch.float32, (n_off,))):
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(
-                f"predict_topk: {name} must be a contiguous {dtype} tensor "
-                f"of shape {shape} on {dev}, got {t.dtype} "
-                f"{tuple(t.shape)} on {t.device}")
+    _check_inputs("predict_topk", dev, (
+        ("fields", cl.fields, torch.float32, (n, NF)),
+        ("cell_start", cl.cell_start, torch.int32, (cl.num_cells + 1,)),
+        ("offsets", offsets, torch.float32, (n_off,))))
     if not 1 <= n_off <= 65535 or sub_steps < 0:
         raise ValueError(f"predict_topk: {n_off} offsets (1..65535) and "
                          f"{sub_steps} sub-steps (>= 0)")
     keys = torch.empty((n_off, n, k), dtype=torch.float32, device=dev)
     idx = torch.empty((n_off, n, k), dtype=torch.int32, device=dev)
     emitted = torch.empty((n_off, n), dtype=torch.int32, device=dev)
-    p, q = kernel_params(cfg), pred_params(cfg)
-    params = (ctypes.c_float * len(PARAM_NAMES))(
-        *[p[name] for name in PARAM_NAMES])
-    qparams = (ctypes.c_float * len(PRED_PARAM_NAMES))(
-        *[q[name] for name in PRED_PARAM_NAMES])
-    lib = load_library()
-    if lib.tc_param_count() != len(PARAM_NAMES) \
-            or lib.tc_pred_param_count() != len(PRED_PARAM_NAMES):
-        raise RuntimeError("csrc/fused_predict.cu and PARAM_NAMES / "
-                           "PRED_PARAM_NAMES disagree")
-    with torch.cuda.device(dev):
+    lib = _library()
+    with _on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.tc_fused_predict(
             cl.fields.data_ptr(), cl.cell_start.data_ptr(),
             offsets.data_ptr(), n_off, n, nx, ny, nz, int(cl.is3d), k,
             sub_steps, int(cfg.detect.angle_form == "product"),
-            ctypes.cast(params, ctypes.c_void_p),
-            ctypes.cast(qparams, ctypes.c_void_p),
+            ctypes.cast(param_block(cfg), ctypes.c_void_p),
+            ctypes.cast(_pred_param_block(cfg), ctypes.c_void_p),
             keys.data_ptr(), idx.data_ptr(), emitted.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(
