@@ -42,6 +42,22 @@ Phases, one JSON line each (any failure raises and exits non-zero):
   predict_oracle   fused_predict (the kernel) against predict_collisions
                    (the grid path) on a 20k uniform fleet whose buckets do
                    not truncate
+  scene            api.Scene through its public methods (scene_phase):
+                   bench.py's serving row (1k precise city skew, backends
+                   xla and fused: 1 warm-up, 30 step(), 30 step_pipelined(),
+                   pipeline_drain(); ms per call, certificates, alert
+                   stats); 100k 2D fast, 12 steps each with overflow and
+                   alert_overflow 0 and one detection launch, the kernel
+                   bit-equal to its plain version on the last fleet; 100k
+                   2D precise, certified by the Scene's own survivor cap and
+                   slot self-heal by the third step; prediction at 100k city
+                   skew (4 steps and ticks, 3 predict() calls, the last with
+                   overflow and slot_oflow 0, the predict kernel launched on
+                   each); step_pipelined x5 + drain against step() x5 and
+                   step_burst(8) against 8 step() calls (equal risks, alert
+                   sets, alert stats, bit-equal states); an async
+                   checkpoint at 100k restored bit-equal into a fresh Scene,
+                   whose next step equals the saved state's
   xla_path         make_step(cfg, backend="xla") at bench.py's XLA rows
                    (1k precise and 1k fast, city skew) and
                    make_step(cfg100k, chunk_size=8192) on a uniform 100k
@@ -62,8 +78,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    against torch.sort plus gathers; the launches per sort
 
 The line before the last lists the kernels with their launches (the
-detection kernels' on main_path, the predict kernel's on predict_path, the
-co-sort's on cosort_vs_plain), their times and their bounds; the last line
+detection kernels' on main_path and scene, the predict kernel's on
+predict_path and scene, the co-sort's on cosort_vs_plain; the sum, and each
+path's in launches_by_path), their times and their bounds; the last line
 is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -71,6 +88,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import json
+import pathlib
 import statistics
 import subprocess
 import time
@@ -804,6 +822,263 @@ def predict_path_inputs(cfg, torch, dev):
     return state, hist
 
 
+# the scene phase: calls of bench.py's Scene serving row (bench.py:307-321
+# times 60; 30 of each mode here), steps of the 100k Scene, predict calls
+SCENE_CALLS, SCENE_STEPS, SCENE_PREDICTS = 30, 10, 3
+# the survivor_k / cap chip_smoke.certified_precise adopts at 100k precise
+CERTIFIED_100K_PRECISE = (12, 400_000)
+# where the scene phase writes its checkpoints (gitignored, emptied after)
+SCRATCH = pathlib.Path(__file__).resolve().parent / ".scratch"
+
+
+def timed_calls(fn, n) -> tuple:
+    """(outputs, ms per call) of n calls of fn, each timed on the host
+    clock (fn returns after its host wait, as a Scene method does)."""
+    outs, ms = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        outs.append(fn())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return outs, ms
+
+
+def call_stats(ms) -> dict:
+    """Average and p95 of ms per call, as bench.py computes them."""
+    srt = sorted(ms)
+    return dict(avg=sum(srt) / len(srt), p95=srt[int(0.95 * len(srt))])
+
+
+def worst_certificates(outs) -> dict:
+    return dict(worst_overflow=max(int(o.overflow) for o in outs),
+                worst_alert_overflow=max(int(o.alert_overflow)
+                                         for o in outs))
+
+
+def states_equal(a, b, torch) -> bool:
+    """Every field of two states equal, bit for bit."""
+    from tpu_collide_torch.core.state import FIELDS
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in FIELDS)
+
+
+def scene_phase(smi, torch, dev) -> dict:
+    """The Scene serving surface on the card, through its public methods:
+    bench.py's serving row on both backends, the 100k fast and precise
+    fleets, prediction at 100k city skew, pipelined and burst stepping
+    against plain steps, and a checkpoint round trip. Emits one line per
+    part; returns the kernels' launches in the phase by mode."""
+    import shutil
+    import tempfile
+    from tpu_collide_torch.api import Scene
+    from tpu_collide_torch.core.state import FIELDS
+    from tpu_collide_torch.kernels.cell_list import build_cell_list
+    from tpu_collide_torch.kernels.fused_detect import (fused_topk,
+                                                        fused_topk_plain,
+                                                        predict_topk)
+    from tpu_collide_torch.sim import generate_fleet
+    fleet = lambda cfg, dist, seed: generate_fleet(
+        torch.Generator(device=dev).manual_seed(seed), cfg, dist)
+    launches = {"hits": 0, "survivors": 0, "predict": 0}
+    runs = {name: (cfg, dist) for name, cfg, dist in main_path_runs()}
+    cfg_p = runs["1k_precise_cityskew"][0]
+    cfg_f, cfg_pr = runs["100k_2d_fast"][0], runs["100k_2d_precise"][0]
+
+    # ---- serving at bench.py's serving row, both backends ----
+    for backend in ("xla", "fused"):
+        t_part = time.perf_counter()
+        fused_topk.launches = 0
+        sc = Scene(cfg_p, state=fleet(cfg_p, "city_skew", 12),
+                   backend=backend, device=dev)
+        probe = fused_topk.launches    # the fleet-exact survivor cap's
+        warm = sc.step()
+        steps, step_ms = timed_calls(sc.step, SCENE_CALLS)
+        piped, pipe_ms = timed_calls(sc.step_pipelined, SCENE_CALLS)
+        piped = piped[1:] + [sc.pipeline_drain()]
+        n_launch = fused_topk.launches - probe
+        launches["survivors"] += fused_topk.launches
+        want = 1 + 2 * SCENE_CALLS if backend == "fused" else 0
+        if n_launch != want:
+            raise AssertionError(f"scene serving {backend}: {n_launch} "
+                                 f"detection launches in {1 + 2 * SCENE_CALLS}"
+                                 " steps")
+        for o in steps + piped:
+            check_output(o, sc.cfg, torch)
+        emit(dict(phase="scene", part="serving",
+                  config="1k_precise_cityskew", backend=backend,
+                  calls=SCENE_CALLS, step_ms=call_stats(step_ms),
+                  step_pipelined_ms=call_stats(pipe_ms),
+                  detection_launches=n_launch, probe_launches=probe,
+                  warmup_alert_overflow=int(warm.alert_overflow),
+                  **worst_certificates(steps + piped),
+                  last_alert_overflow=int(piped[-1].alert_overflow),
+                  survivor_k=sc.cfg.detect.survivor_k,
+                  survivor_cap=sc.cfg.survivor_cap,
+                  window_regrows=sc.window_regrows,
+                  step_and_copy_avg_ms=sc.stats()["avg_step_ms"],
+                  num_alive=sc.stats()["num_alive"],
+                  alert_stats=sc.alert_manager.get_stats(),
+                  seconds=time.perf_counter() - t_part, card=smi))
+
+    # ---- serving at full width: 100k 2D fast ----
+    t_part = time.perf_counter()
+    sc = Scene(cfg_f, state=fleet(cfg_f, "uniform", 101), backend="fused",
+               device=dev)
+    fused_topk.launches = 0
+    outs, ms = timed_calls(sc.step, 2 + SCENE_STEPS)
+    n_launch = fused_topk.launches
+    launches["hits"] += n_launch
+    certs = [(int(o.overflow), int(o.alert_overflow)) for o in outs]
+    if n_launch != len(outs) or any(c != (0, 0) for c in certs):
+        raise AssertionError(f"scene 100k_2d_fast: {n_launch} launches in "
+                             f"{len(outs)} steps, certificates {certs}")
+    check_output(outs[-1], sc.cfg, torch)
+    cl = build_cell_list(sc.state, sc.cfg)
+    k = sc.cfg.alerts.max_alerts_per_object
+    res = compare_slots(fused_topk(cl, sc.cfg, "hits"),
+                        fused_topk_plain(cl, sc.cfg, "hits"), k, torch)
+    emit(dict(phase="scene", part="serving", config="100k_2d_fast",
+              backend="fused", steps=len(outs), warmup_steps=2,
+              step_ms=call_stats(ms[2:]), detection_launches=n_launch,
+              step_and_copy_avg_ms=sc.stats()["avg_step_ms"],
+              certificates=certs, num_risks=int(outs[-1].num_risks),
+              alerts=int(outs[-1].alerts.count), k=k,
+              kernel_vs_plain=res, alert_stats=sc.alert_manager.get_stats(),
+              seconds=time.perf_counter() - t_part, card=smi))
+
+    # ---- precise at 100k: the Scene's own fleet-exact cap and self-heal --
+    t_part = time.perf_counter()
+    fused_topk.launches = 0
+    sc = Scene(cfg_pr, state=fleet(cfg_pr, "uniform", 102), backend="fused",
+               device=dev)
+    adopted = (sc.cfg.detect.survivor_k, sc.cfg.survivor_cap)
+    outs, ms = timed_calls(sc.step, 3)
+    launches["survivors"] += fused_topk.launches
+    aos = [int(o.alert_overflow) for o in outs]
+    if any(int(o.overflow) for o in outs) or aos[-1] != 0 \
+            or fused_topk.launches != 1 + len(outs):
+        raise AssertionError(f"scene 100k_2d_precise: alert_overflow {aos}, "
+                             f"{fused_topk.launches} launches")
+    check_output(outs[-1], sc.cfg, torch)
+    emit(dict(phase="scene", part="precise", config="100k_2d_precise",
+              backend="fused", alert_overflow_per_step=aos, step_ms=ms,
+              adopted_survivor_k_cap=adopted,
+              healed_survivor_k_cap=(sc.cfg.detect.survivor_k,
+                                     sc.cfg.survivor_cap),
+              certified_precise_k_cap=CERTIFIED_100K_PRECISE,
+              window_regrows=sc.window_regrows,
+              num_risks=int(outs[-1].num_risks),
+              seconds=time.perf_counter() - t_part, card=smi))
+
+    # ---- prediction at 100k city skew ----
+    t_part = time.perf_counter()
+    fused_topk.launches = predict_topk.launches = 0
+    sc = Scene(cfg_f, state=fleet(cfg_f, "city_skew", 5), backend="fused",
+               device=dev)
+    for _ in range(4):
+        sc.step()
+        sc.record_trajectories()
+    calls = []
+    for _ in range(SCENE_PREDICTS):
+        before = predict_topk.launches
+        t0 = time.perf_counter()
+        risks = sc.predict()
+        ms = (time.perf_counter() - t0) * 1e3
+        calls.append(dict(ms=ms, returned=len(risks),
+                          launches=predict_topk.launches - before,
+                          **sc.last_predict))
+    launches["hits"] += fused_topk.launches
+    launches["predict"] += predict_topk.launches
+    last = calls[-1]
+    if fused_topk.launches != 4 or any(c["launches"] != 1 for c in calls) \
+            or last["overflow"] != 0 or last["slot_oflow"] != 0 \
+            or not last["returned"]:
+        raise AssertionError(f"scene predict: {calls}, {fused_topk.launches}"
+                             " detection launches in 4 steps")
+    emit(dict(phase="scene", part="predict",
+              config="100k_2d_cityskew_predict", backend="fused",
+              calls=calls, k_slots_reached=sc._predict_slots,
+              window_regrows=sc.window_regrows,
+              seconds=time.perf_counter() - t_part, card=smi))
+
+    # ---- equalities: pipelined and burst against plain steps ----
+    t_part = time.perf_counter()
+    fused_topk.launches = 0
+    mk = lambda: Scene(cfg_f, state=fleet(cfg_f, "uniform", 103),
+                       backend="fused", device=dev)
+    a, b = mk(), mk()
+    outs_a = [a.step() for _ in range(5)]
+    outs_b = [b.step_pipelined() for _ in range(5)][1:] + [b.pipeline_drain()]
+    same_risks = [int(x.num_risks) for x in outs_a] == \
+        [int(x.num_risks) for x in outs_b]
+    same_alerts = all(alert_dict(x.alerts) == alert_dict(y.alerts)
+                      for x, y in zip(outs_a, outs_b))
+    same_stats = a.alert_manager.get_stats() == b.alert_manager.get_stats()
+    same_state = states_equal(a.state, b.state, torch)
+    c, d = mk(), mk()
+    c.step_burst(8)
+    for _ in range(8):
+        d.step()
+    burst_equal = states_equal(c.state, d.state, torch)
+    launches["hits"] += fused_topk.launches
+    if not (same_risks and same_alerts and same_stats and same_state
+            and burst_equal) or fused_topk.launches != 26:
+        raise AssertionError(
+            f"scene equalities: pipelined risks {same_risks}, alerts "
+            f"{same_alerts}, stats {same_stats}, state {same_state}; burst "
+            f"{burst_equal}; {fused_topk.launches} launches")
+    emit(dict(phase="scene", part="equalities", config="100k_2d_fast",
+              pipelined_vs_step=dict(steps=5, num_risks_equal=True,
+                                     alert_sets_equal=True,
+                                     alert_stats_equal=True,
+                                     states_bit_equal=True),
+              burst_vs_steps=dict(steps=8, states_bit_equal=True),
+              seconds=time.perf_counter() - t_part, card=smi))
+
+    # ---- checkpoint at 100k ----
+    t_part = time.perf_counter()
+    fused_topk.launches = 0
+    SCRATCH.mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="scene_ckpt_", dir=SCRATCH)
+    try:
+        a = Scene(cfg_f, state=fleet(cfg_f, "uniform", 104), backend="fused",
+                  checkpoint_dir=ckpt_dir, device=dev)
+        a.step(3)
+        snap = a.state.replace(**{f: getattr(a.state, f).clone()
+                                  for f in FIELDS})
+        t0 = time.perf_counter()
+        a.save_checkpoint_async()
+        call_ms = (time.perf_counter() - t0) * 1e3
+        a.step()                      # serving goes on during the write
+        a.ckpt.wait_async()
+        save_ms = (time.perf_counter() - t0) * 1e3
+        b = Scene(cfg_f, backend="fused", checkpoint_dir=ckpt_dir,
+                  device=dev)
+        t0 = time.perf_counter()
+        at = b.restore_checkpoint()
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        restored_equal = states_equal(b.state, snap, torch)
+        # one further step from the restored state and from the saved one,
+        # each on a Scene with a fresh generator
+        c = Scene(cfg_f, state=snap, backend="fused", device=dev)
+        ob, oc = b.step(), c.step()
+        step_equal = (int(ob.num_risks) == int(oc.num_risks)
+                      and alert_dict(ob.alerts) == alert_dict(oc.alerts)
+                      and states_equal(b.state, c.state, torch))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    launches["hits"] += fused_topk.launches
+    if not (restored_equal and step_equal and at == 3):
+        raise AssertionError(f"scene checkpoint: restored step {at}, state "
+                             f"bit-equal {restored_equal}, next step equal "
+                             f"{step_equal}")
+    emit(dict(phase="scene", part="checkpoint", config="100k_2d_fast",
+              restored_step=at, state_bit_equal=True, next_step_equal=True,
+              save_async_call_ms=call_ms, save_ms=save_ms,
+              restore_ms=restore_ms,
+              seconds=time.perf_counter() - t_part, card=smi))
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -1163,6 +1438,9 @@ def main() -> None:
               cell_capacity=cap, grid_overflow=g_over, pairs=len(wm),
               max_abs_diff=d, slot_trunc=int(got[7]), card=smi))
 
+    # ---- scene: the Scene serving surface ----
+    scene_launches = scene_phase(smi, torch, dev)
+
     # ---- xla_path: the reference-shaped step ----
     cfg1k_p = tt.SystemConfig(num_objects=1000,
                               detect=DetectionConfig(mode="precise"))
@@ -1355,7 +1633,10 @@ def main() -> None:
     kernels = [dict(name=f"fused_topk[{mode}]", route="cuda",
                     source="tpu_collide_torch/csrc/fused_detect.cu",
                     replaces="tpu_collide/kernels/fused_detect.py:144",
-                    launches=launches[mode], max_abs_err=err[mode],
+                    launches=launches[mode] + scene_launches[mode],
+                    launches_by_path=dict(main_path=launches[mode],
+                                          scene=scene_launches[mode]),
+                    max_abs_err=err[mode],
                     ms=kernel_ms[cfg_name][0],
                     plain_ms=kernel_ms[cfg_name][1],
                     bound_ms=bounds[cfg_name]["bound_ms"],
@@ -1365,21 +1646,28 @@ def main() -> None:
     kernels.append(dict(name="fused_topk[predict]", route="cuda",
                         source="tpu_collide_torch/csrc/fused_predict.cu",
                         replaces="tpu_collide/kernels/fused_detect.py:553",
-                        launches=n_pred, max_abs_err=pred_err,
+                        launches=n_pred + scene_launches["predict"],
+                        launches_by_path=dict(
+                            predict_path=n_pred,
+                            scene=scene_launches["predict"]),
+                        max_abs_err=pred_err,
                         ms=pred_ms[0], plain_ms=pred_ms[1],
                         bound_ms=pred_bound["bound_ms"],
                         bound_by=pred_bound["bound_by"], library_ms=None))
     kernels.append(dict(name="co_sort", route="cuda",
                         source="tpu_collide_torch/csrc/block_sort.cu",
                         replaces=".probe/block_sort.py:158",
-                        launches=n_sort, max_abs_err=0.0,
+                        launches=n_sort,
+                        launches_by_path=dict(cosort_vs_plain=n_sort),
+                        max_abs_err=0.0,
                         ms=sort_ms["kernel_ms"], plain_ms=sort_ms["plain_ms"],
                         bound_ms=sort_ms["bound_ms"],
                         bound_by=sort_ms["bound_by"],
                         library_ms=sort_ms["library_ms"]))
     for kr in kernels:
-        if kr["launches"] == 0:
-            raise AssertionError(f"{kr['name']} never ran on the main path")
+        for path, n in kr["launches_by_path"].items():
+            if n == 0:
+                raise AssertionError(f"{kr['name']} never ran on {path}")
     emit(dict(kernels=kernels))
     emit(dict(ok=True, device=dict(platform="gpu", kind=card,
                                    count=torch.cuda.device_count())))

@@ -1,0 +1,1 @@
+from tpu_collide_torch.api.scene import Scene

@@ -1,7 +1,13 @@
-"""Where the port's tensors go when the caller names no device: the card."""
+"""Where the port's tensors go when the caller names no device (the card),
+and how the host reads them back: `to_host` lands a list of tensors in one
+device-to-host copy, `to_host_async` starts that copy and `HostCopy.wait`
+ends it."""
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+_CARRIED = (torch.float32, torch.int32, torch.bool)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -24,3 +30,66 @@ def check_on(state, dev: torch.device, what: str) -> None:
     if state.device != dev:
         raise ValueError(f"state lies on {state.device}, {what} expects "
                          f"{dev}")
+
+
+def _pack(tensors) -> tuple[torch.Tensor, list]:
+    """The tensors as one flat int32 tensor (f32 by its bits), and each
+    one's (dtype, shape)."""
+    parts, specs = [], []
+    for t in tensors:
+        if t.dtype not in _CARRIED:
+            raise TypeError(f"to_host carries {_CARRIED}, not {t.dtype}")
+        flat = t.reshape(-1)
+        parts.append(flat.view(torch.int32) if t.dtype == torch.float32
+                     else flat.to(torch.int32))
+        specs.append((t.dtype, tuple(t.shape)))
+    return torch.cat(parts), specs
+
+
+def _unpack(flat: np.ndarray, specs: list) -> list:
+    out, at = [], 0
+    for dtype, shape in specs:
+        n = int(np.prod(shape, dtype=np.int64))
+        part = flat[at:at + n]
+        at += n
+        if dtype == torch.float32:
+            part = part.view(np.float32)
+        elif dtype == torch.bool:
+            part = part.astype(bool)
+        out.append(part.reshape(shape))
+    return out
+
+
+class HostCopy:
+    """A device-to-host copy under way; `wait` returns the numpy arrays."""
+
+    def __init__(self, host: torch.Tensor, done, specs: list):
+        self._host, self._done, self._specs = host, done, specs
+
+    def wait(self) -> list:
+        if self._done is not None:
+            self._done.synchronize()
+        return _unpack(self._host.numpy(), self._specs)
+
+
+def to_host_async(tensors) -> HostCopy:
+    """Starts the copy of `tensors` (f32, int32 or bool, all on one device)
+    to the host: one non-blocking copy into pinned memory behind the
+    work already queued on the current stream, marked by a CUDA event. CPU
+    tensors are copied at once."""
+    flat, specs = _pack(tensors)
+    if not flat.is_cuda:
+        return HostCopy(flat, None, specs)
+    host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+    with torch.cuda.device(flat.device):
+        host.copy_(flat, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+    return HostCopy(host, done, specs)
+
+
+def to_host(tensors) -> list:
+    """`tensors` as numpy arrays of their dtypes and shapes, fetched in one
+    device-to-host copy (a single wait for the device)."""
+    flat, specs = _pack(tensors)
+    return _unpack(flat.cpu().numpy(), specs)
