@@ -58,6 +58,23 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    sets, alert stats, bit-equal states); an async
                    checkpoint at 100k restored bit-equal into a fresh Scene,
                    whose next step equals the saved state's
+  service          the service node over HTTP (service_phase): a
+                   CollisionSystem at 100k 2D fast (main_path's fleet, 1,024
+                   spare slots) behind the stdlib server; 1,000 vehicles of
+                   a VehicleSimulator pushed through http_sink (new, then
+                   updated), POST /step x10, pipelined x10, one burst of 8,
+                   /detect, GET /alerts, /stats, /health,
+                   /vehicles/{id}/risks, a checkpoint and a detection task
+                   through POST /tasks, the alerts pump() sends received on
+                   TOPIC_ALERTS; every request answered 200, overflow and
+                   alert_overflow 0 on every step, one detection launch a
+                   fused step, the kernel bit-equal to its plain version on
+                   the last fleet; ms per request by route, ingest requests
+                   per second. Then the 1k precise city-skew service through
+                   POST /step, certified after its self-heal, and
+                   python -m tpu_collide_torch.system (10k, fused) as a
+                   subprocess: /health, 100 locations, /step, /alerts, exit
+                   0 on SIGTERM
   xla_path         make_step(cfg, backend="xla") at bench.py's XLA rows
                    (1k precise and 1k fast, city skew) and
                    make_step(cfg100k, chunk_size=8192) on a uniform 100k
@@ -78,7 +95,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    against torch.sort plus gathers; the launches per sort
 
 The line before the last lists the kernels with their launches (the
-detection kernels' on main_path and scene, the predict kernel's on
+detection kernels' on main_path, scene and service, the predict kernel's on
 predict_path and scene, the co-sort's on cosort_vs_plain; the sum, and each
 path's in launches_by_path), their times and their bounds; the last line
 is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -827,8 +844,10 @@ def predict_path_inputs(cfg, torch, dev):
 SCENE_CALLS, SCENE_STEPS, SCENE_PREDICTS = 30, 10, 3
 # the survivor_k / cap chip_smoke.certified_precise adopts at 100k precise
 CERTIFIED_100K_PRECISE = (12, 400_000)
-# where the scene phase writes its checkpoints (gitignored, emptied after)
-SCRATCH = pathlib.Path(__file__).resolve().parent / ".scratch"
+# where the scene and service phases write their checkpoints (gitignored,
+# emptied after)
+ROOT = pathlib.Path(__file__).resolve().parent
+SCRATCH = ROOT / ".scratch"
 
 
 def timed_calls(fn, n) -> tuple:
@@ -1076,6 +1095,389 @@ def scene_phase(smi, torch, dev) -> dict:
               save_async_call_ms=call_ms, save_ms=save_ms,
               restore_ms=restore_ms,
               seconds=time.perf_counter() - t_part, card=smi))
+    return launches
+
+
+# the service phase: vehicles pushed over HTTP (new ids, then one update
+# each), spare fleet slots for them, plain and pipelined POST /step
+# requests, the steps of one burst request, POST /step on the precise
+# service; a detection loop slower than the phase (its first sweep finds no
+# fleet, its next comes after the phase), so that it holds no lock through
+# the timed requests
+SERVICE_VEHICLES, SERVICE_SPARE = 1000, 1024
+SERVICE_STEPS, SERVICE_BURST, SERVICE_PRECISE_STEPS = 10, 8, 5
+SERVICE_DETECTION_HZ = 0.01
+# python -m tpu_collide_torch.system: its fleet capacity, the locations
+# posted to it, and how long it may take to answer /health and to stop
+ENTRY_OBJECTS, ENTRY_LOCATIONS, ENTRY_WAIT_S = 10_000, 100, 180
+
+
+def http_call(base, method, path, body=None) -> tuple:
+    """(payload, ms on the host clock) of one request; fails unless it is
+    answered 200."""
+    import urllib.request
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(base + path, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=120) as r:
+        payload = json.loads(r.read())
+        status = r.status
+    ms = (time.perf_counter() - t0) * 1e3
+    if status != 200 or not payload.get("success"):
+        raise AssertionError(f"{method} {path}: {status} {payload}")
+    return payload, ms
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class ServiceNode:
+    """A CollisionSystem and a SceneHTTPServer on its Scene, its asyncio
+    loop on a thread of its own; `outputs` collects every StepOutput the
+    Scene's step methods return, whoever calls them. Stop with stop()."""
+
+    def __init__(self, cfg, dev, ckpt_dir, on_alert=None):
+        import asyncio
+        import threading
+        from tpu_collide_torch.api.stdlib_server import SceneHTTPServer
+        from tpu_collide_torch.runtime.messaging import TOPIC_ALERTS
+        from tpu_collide_torch.system import CollisionSystem
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.server = None
+        self.system = CollisionSystem(
+            cfg, checkpoint_dir=ckpt_dir, detection_hz=SERVICE_DETECTION_HZ,
+            checkpoint_every_s=0, backend="fused", device=dev)
+        if on_alert is not None:
+            self.system.broker.subscribe(TOPIC_ALERTS, on_alert)
+        self.started = False
+        self.run(self.system.start())
+        self.started = True
+        self.scene = self.system.scene
+        self.outputs = []
+        for name in ("step", "step_pipelined", "step_burst",
+                     "pipeline_drain"):
+            setattr(self.scene, name, self._recording(getattr(self.scene,
+                                                              name)))
+        self.server = SceneHTTPServer(self.scene, port=0,
+                                      scheduler=self.system.scheduler)
+        self.base = f"http://127.0.0.1:{self.server.start()}"
+
+    def _recording(self, fn):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            if out is not None:
+                self.outputs.append(out)
+            return out
+        return call
+
+    def run(self, coro, timeout=120):
+        import asyncio
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(
+            timeout)
+
+    def certificates(self) -> list:
+        """(overflow, alert_overflow) of every recorded output."""
+        with self.scene._device_lock:
+            return [(int(o.overflow), int(o.alert_overflow))
+                    for o in self.outputs]
+
+    def stop(self) -> None:
+        try:
+            if self.server is not None:
+                self.server.stop()
+            if self.started:
+                self.run(self.system.stop())
+        finally:
+            self.loop.call_soon_threadsafe(self.loop.stop)
+            self.thread.join(timeout=30)
+            self.loop.close()
+
+
+def padded_fleet(state, spare, torch):
+    """The fleet with `spare` dead slots after it (oids stay the slots)."""
+    from tpu_collide_torch.core.state import FIELDS, empty_state
+    pad = empty_state(spare, device=state.pos.device)
+    out = state.replace(**{f: torch.cat([getattr(state, f), getattr(pad, f)])
+                           for f in FIELDS})
+    return out.replace(oid=torch.arange(out.n, dtype=torch.int32,
+                                        device=state.pos.device))
+
+
+def entry_point(extra_args=()) -> dict:
+    """python -m tpu_collide_torch.system on a free port, as a user starts
+    the service: waits for /health, posts ENTRY_LOCATIONS locations (pairs
+    closing at 20 m/s), POST /step, GET /alerts, then SIGTERM. Fails unless
+    every answer is 200 and the process exits 0."""
+    import os
+    import shutil
+    import sys
+    import tempfile
+    import urllib.error
+    import urllib.request
+    SCRATCH.mkdir(exist_ok=True)
+    work = tempfile.mkdtemp(prefix="entry_", dir=SCRATCH)
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    log = pathlib.Path(work) / "system.log"
+    t0 = time.perf_counter()
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tpu_collide_torch.system",
+             "--objects", str(ENTRY_OBJECTS), "--backend", "fused",
+             "--api-port", str(port), "--checkpoint-dir", work,
+             "--log-level", "WARNING", *extra_args],
+            cwd=ROOT, env=env, stdout=fh, stderr=subprocess.STDOUT)
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"system exited {proc.returncode} "
+                                     f"before /health: {log.read_text()}")
+            try:
+                http_call(base, "GET", "/health")
+                with urllib.request.urlopen(base + "/health", timeout=30) as r:
+                    server = r.headers.get("Server")
+                break
+            except (urllib.error.URLError, ConnectionError):
+                if time.perf_counter() - t0 > ENTRY_WAIT_S:
+                    raise AssertionError(f"no /health in {ENTRY_WAIT_S} s")
+                time.sleep(0.2)
+        up_s = time.perf_counter() - t0
+        ms = []
+        for i in range(ENTRY_LOCATIONS):
+            side, row = i % 2, i // 2
+            body = {"vehicle_id": f"entry-{i}",
+                    "position": {"x": 100.0 + 60.0 * side,
+                                 "y": 100.0 + 150.0 * row},
+                    "velocity": {"x": 10.0 - 20.0 * side},
+                    "heading": 3.14159 * side}
+            ms.append(http_call(base, "POST", "/vehicles/location", body)[1])
+        step, step_ms = http_call(base, "POST", "/step", {})
+        alerts, alerts_ms = http_call(base, "GET", "/alerts")
+    except Exception as e:
+        raise AssertionError(f"entry point: {e!r}; the system's log: "
+                             f"{log.read_text()[-4000:]}") from e
+    finally:
+        if proc.poll() is None:
+            proc.terminate()
+        try:
+            rc = proc.wait(timeout=ENTRY_WAIT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise
+    if rc != 0:
+        raise AssertionError(f"system exited {rc} after SIGTERM: "
+                             f"{log.read_text()}")
+    if not alerts["data"]:
+        raise AssertionError(f"entry point: no alerts after {step}")
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(objects=ENTRY_OBJECTS, server=server, seconds_to_health=up_s,
+                location_ms=call_stats(ms), step=step["data"],
+                step_ms=step_ms, alerts=len(alerts["data"]),
+                alerts_ms=alerts_ms, exit_code=rc,
+                seconds=time.perf_counter() - t0)
+
+
+def service_phase(smi, torch, dev) -> dict:
+    """The service node on the card, through HTTP: a CollisionSystem on
+    main_path's 100k 2D fast fleet (with spare slots) behind the stdlib
+    server, vehicles of a VehicleSimulator pushed through http_sink, POST
+    /step plain, pipelined and burst, /detect, the queries, two tasks and
+    the broker's alerts; a precise 1k service through POST /step; then the
+    entry point a user starts. Emits one line per part; returns the
+    detection kernel's launches in the phase by mode."""
+    import shutil
+    import tempfile
+    from tpu_collide_torch.kernels.cell_list import build_cell_list
+    from tpu_collide_torch.kernels.fused_detect import (fused_topk,
+                                                        fused_topk_plain)
+    from tpu_collide_torch.sim import (TrafficMap, VehicleSimulator,
+                                       generate_fleet)
+    from tpu_collide_torch.sim.traffic import http_sink
+    runs = list(main_path_runs())
+    seeds = {name: 100 + i for i, (name, _, _) in enumerate(runs)}
+    runs = {name: (cfg, dist) for name, cfg, dist in runs}
+    launches = {"hits": 0, "survivors": 0}
+    SCRATCH.mkdir(exist_ok=True)
+
+    # ---- the 100k fast service ----
+    t_part = time.perf_counter()
+    cfg0, dist = runs["100k_2d_fast"]
+    fleet = generate_fleet(torch.Generator(device=dev).manual_seed(
+        seeds["100k_2d_fast"]), cfg0, dist)
+    cfg = cfg0.replace(num_objects=cfg0.num_objects + SERVICE_SPARE)
+    heard = []
+
+    async def on_alert(msg):
+        heard.append(msg)
+
+    ckpt_dir = tempfile.mkdtemp(prefix="service_ckpt_", dir=SCRATCH)
+    node = None
+    try:
+        node = ServiceNode(cfg, dev, ckpt_dir, on_alert)
+        sc, base = node.scene, node.base
+        sc.adopt_fleet(padded_fleet(fleet, SERVICE_SPARE, torch),
+                       ids=[f"fleet-{i}" for i in range(cfg0.num_objects)])
+        # a road grid over the configuration's world, a road every cell
+        cs = cfg.grid.cell_size
+        roads = TrafficMap(seed=7).generate_grid_map(
+            *(int(e // cs) for e in cfg.world.extent[:2]), cell_size=cs)
+        sim = VehicleSimulator(roads, num_vehicles=SERVICE_VEHICLES, seed=7)
+        sim.initialize_vehicles()
+        push = http_sink(base)
+        ms = {}
+
+        def ingest(route):
+            batch = sim.to_location_data()
+            t0 = time.perf_counter()
+            for loc in batch:
+                t1 = time.perf_counter()
+                push([loc])
+                ms.setdefault(route, []).append(
+                    (time.perf_counter() - t1) * 1e3)
+            return len(batch) / (time.perf_counter() - t0)
+
+        def request(route, method, path, body=None):
+            payload, t = http_call(base, method, path, body)
+            ms.setdefault(route, []).append(t)
+            return payload["data"]
+
+        ingest_rate = {"new": ingest("POST /vehicles/location (new)")}
+        sim.update_vehicles(0.1)
+        ingest_rate["update"] = ingest("POST /vehicles/location (update)")
+
+        fused_topk.launches = 0
+        node.outputs.clear()
+        for _ in range(SERVICE_STEPS):
+            step = request("POST /step", "POST", "/step", {})
+        for _ in range(SERVICE_STEPS):
+            request("POST /step pipelined", "POST", "/step",
+                    {"pipelined": True})
+        sc.pipeline_drain()        # the last pipelined step's output
+        burst = request(f"POST /step burst {SERVICE_BURST}", "POST", "/step",
+                        {"burst": True, "steps": SERVICE_BURST})
+        detect = request("POST /detect", "POST", "/detect", {})
+        n_launch = fused_topk.launches
+        certs = node.certificates()
+        n_steps = 2 * SERVICE_STEPS + SERVICE_BURST
+        if sc.ingested_count != cfg0.num_objects + SERVICE_VEHICLES:
+            raise AssertionError(f"service: {sc.ingested_count} vehicles")
+        launches["hits"] += n_launch
+        if n_launch != n_steps or len(certs) != 2 * SERVICE_STEPS + 1 \
+                or any(c != (0, 0) for c in certs):
+            raise AssertionError(f"service 100k_2d_fast: {n_launch} launches "
+                                 f"in {n_steps} fused steps, certificates "
+                                 f"{certs}")
+        with sc._device_lock:
+            cl = build_cell_list(sc.state, sc.cfg)
+            k = sc.cfg.alerts.max_alerts_per_object
+            res = compare_slots(fused_topk(cl, sc.cfg, "hits"),
+                                fused_topk_plain(cl, sc.cfg, "hits"), k,
+                                torch)
+        if not res["bit_equal"]:
+            raise AssertionError("service 100k_2d_fast: the kernel differs "
+                                 "from its plain version")
+
+        alerts = request("GET /alerts", "GET", "/alerts")
+        request("GET /stats", "GET", "/stats")
+        request("GET /health", "GET", "/health")
+        vid = alerts[0]["vehicle_id"]
+        risks = request("GET /vehicles/{id}/risks", "GET",
+                        f"/vehicles/{vid}/risks")
+        done0 = node.system.scheduler.stats["completed"]
+        for kind in ("checkpoint", "collision_detection"):
+            request("POST /tasks", "POST", "/tasks", {"task_type": kind})
+        deadline = time.perf_counter() + 120
+        while node.system.scheduler.stats["completed"] < done0 + 2:
+            if time.perf_counter() > deadline \
+                    or node.system.scheduler.stats["failed"]:
+                raise AssertionError(f"service tasks: "
+                                     f"{node.system.scheduler.get_stats()}")
+            time.sleep(0.05)
+        # every alert pump() has sent by now reaches the subscriber (resends
+        # come every resend_interval_s, so count alerts, not messages)
+        with sc.alert_manager._lock:
+            sent = {a.id for a in sc.alert_manager.alerts.values()
+                    if a.last_sent > 0}
+        deadline = time.perf_counter() + 60
+        while sent - {m.value["id"] for m in list(heard)}:
+            if time.perf_counter() > deadline:
+                raise AssertionError(
+                    f"broker: {len(sent - {m.value['id'] for m in heard})} "
+                    f"of {len(sent)} sent alerts not received, "
+                    f"{node.system.broker.get_stats()}")
+            time.sleep(0.05)
+        dropped = node.system.broker.stats["dropped"]
+        if not sent or dropped:
+            raise AssertionError(f"broker: {len(sent)} alerts sent, "
+                                 f"{dropped} messages dropped")
+        emit(dict(
+            phase="service", part="fused", config="100k_2d_fast",
+            capacity=cfg.num_objects, fleet=cfg0.num_objects,
+            http_vehicles=SERVICE_VEHICLES,
+            ms_per_request={r: dict(calls=len(v), **call_stats(v))
+                            for r, v in ms.items()},
+            ingest_requests_per_s=ingest_rate,
+            step_and_copy_avg_ms=sc.stats()["avg_step_ms"],
+            detection_launches=n_launch, fused_steps=n_steps,
+            certificates=certs, last_step=step, burst=burst,
+            detect=detect, alerts=len(alerts), risks_of_one_vehicle=len(risks),
+            kernel_vs_plain=res, alerts_sent=len(sent),
+            messages_received_on_broker=len(heard),
+            broker=node.system.broker.get_stats(),
+            scheduler=node.system.scheduler.get_stats(),
+            alert_stats=sc.alert_manager.get_stats(),
+            seconds=time.perf_counter() - t_part, card=smi))
+    finally:
+        if node is not None:
+            node.stop()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # ---- the 1k precise service: the Scene's own self-heal ----
+    t_part = time.perf_counter()
+    cfg, dist = runs["1k_precise_cityskew"]
+    ckpt_dir = tempfile.mkdtemp(prefix="service_ckpt_", dir=SCRATCH)
+    node = None
+    try:
+        node = ServiceNode(cfg, dev, ckpt_dir)
+        node.scene.adopt_fleet(generate_fleet(
+            torch.Generator(device=dev).manual_seed(12), cfg, dist))
+        fused_topk.launches = 0
+        ms = [http_call(node.base, "POST", "/step", {})[1]
+              for _ in range(SERVICE_PRECISE_STEPS)]
+        n_launch = fused_topk.launches
+        certs = node.certificates()
+        launches["survivors"] += n_launch
+        if n_launch != SERVICE_PRECISE_STEPS or certs[-1] != (0, 0) \
+                or any(of for of, _ in certs):
+            raise AssertionError(f"service 1k_precise_cityskew: {n_launch} "
+                                 f"launches, certificates {certs}")
+        emit(dict(phase="service", part="precise",
+                  config="1k_precise_cityskew", step_ms=call_stats(ms),
+                  detection_launches=n_launch, certificates=certs,
+                  survivor_k=node.scene.cfg.detect.survivor_k,
+                  survivor_cap=node.scene.cfg.survivor_cap,
+                  window_regrows=node.scene.window_regrows,
+                  seconds=time.perf_counter() - t_part, card=smi))
+    finally:
+        if node is not None:
+            node.stop()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # ---- the entry point a user starts ----
+    emit(dict(phase="service", part="entry_point",
+              command="python -m tpu_collide_torch.system --objects "
+                      f"{ENTRY_OBJECTS} --backend fused --api-port PORT",
+              **entry_point(("--device", str(dev))), card=smi))
     return launches
 
 
@@ -1441,6 +1843,9 @@ def main() -> None:
     # ---- scene: the Scene serving surface ----
     scene_launches = scene_phase(smi, torch, dev)
 
+    # ---- service: the service node over HTTP ----
+    service_launches = service_phase(smi, torch, dev)
+
     # ---- xla_path: the reference-shaped step ----
     cfg1k_p = tt.SystemConfig(num_objects=1000,
                               detect=DetectionConfig(mode="precise"))
@@ -1633,9 +2038,11 @@ def main() -> None:
     kernels = [dict(name=f"fused_topk[{mode}]", route="cuda",
                     source="tpu_collide_torch/csrc/fused_detect.cu",
                     replaces="tpu_collide/kernels/fused_detect.py:144",
-                    launches=launches[mode] + scene_launches[mode],
+                    launches=(launches[mode] + scene_launches[mode]
+                              + service_launches[mode]),
                     launches_by_path=dict(main_path=launches[mode],
-                                          scene=scene_launches[mode]),
+                                          scene=scene_launches[mode],
+                                          service=service_launches[mode]),
                     max_abs_err=err[mode],
                     ms=kernel_ms[cfg_name][0],
                     plain_ms=kernel_ms[cfg_name][1],

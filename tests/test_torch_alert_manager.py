@@ -6,7 +6,6 @@ pump, priorities of host CollisionRisks) behaves as the JAX one's."""
 import asyncio
 
 import numpy as np
-import pytest
 import torch
 
 from tpu_collide.alerts.extract import extract_alerts as jax_extract
@@ -123,5 +122,34 @@ def test_callbacks_deliver_and_broker_is_refused():
     assert [a.vehicle_id for a in got] == ["v1"]
     assert [a.vehicle_id for a in everyone] == ["v1", "v2"]  # priority order
     assert m.get_stats()["sent"] == len(sent) == 2
-    with pytest.raises(ValueError):
-        AlertManager(tt.SystemConfig(num_objects=10), broker=object())
+
+    # given a broker, the same pump also publishes each alert on
+    # TOPIC_ALERTS, as the JAX manager does
+    from tpu_collide_torch.runtime.messaging import (MessageBroker,
+                                                     TOPIC_ALERTS)
+
+    async def through_broker():
+        broker = MessageBroker()
+        heard = []
+
+        async def on_alert(msg):
+            heard.append(msg)
+
+        broker.subscribe(TOPIC_ALERTS, on_alert)
+        await broker.start()
+        try:
+            mb = AlertManager(tt.SystemConfig(num_objects=10), broker=broker)
+            mb._upsert("v1", "o1", 0.9, 2.0, 3.0, 3)
+            await mb.pump(now=100.0)
+            for _ in range(200):
+                if heard:
+                    break
+                await asyncio.sleep(0.01)
+        finally:
+            await broker.stop()
+        return heard, mb
+
+    heard, mb = asyncio.run(through_broker())
+    assert [(h.key, h.value["other_vehicle_id"], h.value["priority"])
+            for h in heard] == [("v1", "o1", 3)]
+    assert heard[0].value["id"] == next(iter(mb.alerts))

@@ -12,9 +12,8 @@ Messages are English rather than the reference's Chinese templates, same
 fields interpolated.
 
 The port of tpu_collide/alerts/manager.py: process_batch takes a torch
-AlertBatch in one device-to-host copy, and alerts leave through the
-callbacks only (the JAX package's broker egress rides its runtime, which
-the port does not have yet).
+AlertBatch in one device-to-host copy; alerts leave through the callbacks
+and, given a broker (runtime/messaging.MessageBroker), on TOPIC_ALERTS.
 """
 from __future__ import annotations
 
@@ -58,10 +57,8 @@ class AlertManager:
     """Stateful alert registry fed by device AlertBatches."""
 
     def __init__(self, cfg: SystemConfig, broker=None):
-        if broker is not None:
-            raise ValueError("the port has no message broker yet: alerts "
-                             "leave through register_callback")
         self.cfg = cfg
+        self.broker = broker                      # optional egress
         self.alerts: Dict[str, Alert] = {}        # alert_id -> Alert
         self.pair_alerts: Dict[tuple, str] = {}   # (veh, other) -> alert_id
         # heap entries are IMMUTABLE snapshots (-priority, timestamp, seq,
@@ -239,6 +236,22 @@ class AlertManager:
 
     async def _send(self, a: Alert) -> None:
         self.stats["sent"] += 1
+        if self.broker is not None:
+            from tpu_collide_torch.runtime.messaging import (Message,
+                                                             TOPIC_ALERTS)
+            await self.broker.publish(Message(
+                topic=TOPIC_ALERTS, key=a.vehicle_id, value={
+                    "id": a.id, "vehicle_id": a.vehicle_id,
+                    "other_vehicle_id": a.other_vehicle_id,
+                    "risk_level": a.risk_level,
+                    "time_to_collision": a.time_to_collision,
+                    "message": a.message, "priority": a.priority,
+                    "timestamp": a.timestamp}))
+            # pump() delivers every due alert in one burst, and publish()
+            # does not yield: let the broker's dispatch task drain the topic
+            # after each alert, or a burst larger than its queue drops the
+            # oldest messages, which are the most urgent alerts
+            await asyncio.sleep(0)
         for cb in (self._callbacks.get(a.vehicle_id, [])
                    + self._global_callbacks):
             try:

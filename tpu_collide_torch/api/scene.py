@@ -45,7 +45,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from tpu_collide_torch.alerts.extract import extract_alerts
+from tpu_collide_torch.alerts.extract import AlertBatch, extract_alerts
 from tpu_collide_torch.alerts.manager import AlertManager
 from tpu_collide_torch.ckpt.checkpoint import CheckpointManager
 from tpu_collide_torch.core.config import VEHICLE_TYPES, SystemConfig
@@ -660,7 +660,9 @@ class Scene:
     def detect(self) -> Any:
         """Detection only, no physics (externally-driven fleets: ingest ->
         flush -> detect, the EarlyWarningSystem pattern). Returns the
-        scene's AlertBatch on the device."""
+        scene's AlertBatch on the host: each field a numpy array, `count`
+        included, fetched in one device-to-host copy (as the JAX Scene
+        returns the fetched batch)."""
         with self._device_lock:
             return self._detect_locked()
 
@@ -836,14 +838,15 @@ class Scene:
         with Timer() as t:
             pairs = self._detect(self.state)
             batch = extract_alerts(self.state, pairs, self.cfg)
-            # one copy: real sync + everything the host reads
-            host = HostAlerts(*to_host([getattr(batch, f)
-                                        for f in HostAlerts._fields]))
+            # one copy: real sync + the whole batch, count included
+            fields = [f.name for f in dataclasses.fields(AlertBatch)]
+            batch = AlertBatch(**dict(zip(fields, to_host(
+                [getattr(batch, f) for f in fields]))))
         self.stats_timing["steps"] += 1
         self.stats_timing["total_ms"] += t.elapsed_ms
         self.stats_timing["max_ms"] = max(self.stats_timing["max_ms"],
                                           t.elapsed_ms)
-        self.alert_manager.process_batch(host, resolver=self.vehicle_id_of)
+        self.alert_manager.process_batch(batch, resolver=self.vehicle_id_of)
         return batch
 
     # ---- queries ----
