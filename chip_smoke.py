@@ -22,9 +22,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    100 objects that are all dead
   probe            the head-on pair (ttc 4.70 s) through the fused path
   main_path        make_step(cfg, backend="fused") at the configurations of
-                   bench.py's flagship rows, every certificate 0 (a precise
-                   cell adopts survivor_k and the survivor cap by bench.py's
-                   rule, certified_precise); the kernel bit-equal to its
+                   bench.py's flagship rows, every certificate 0 (a cell
+                   whose certificate is not 0 adopts max_alerts_per_object,
+                   or survivor_k and the survivor cap, by bench.py's rule,
+                   certified); the kernel bit-equal to its
                    plain version on each stepped fleet; at 100k the step's
                    detection also runs through the plain version and must
                    agree
@@ -75,6 +76,21 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    python -m tpu_collide_torch.system (10k, fused) as a
                    subprocess: /health, 100 locations, /step, /alerts, exit
                    0 on SIGTERM
+  scenario         the device movement modes (scenario_phase) on bench.py's
+                   100k 2D configuration and a 100 x 100 grid map of 100 m
+                   roads: a road fleet (every object on a road drawn by
+                   init_scenario) in fast and in precise mode and a
+                   destination fleet through make_scenario_step(backend=
+                   "fused"), 2 + 10 steps each, every certificate 0 after
+                   bench.py's rule (certified) and one detection launch a
+                   step; the kernel bit-equal to its plain version on the
+                   stepped road fleet in both modes; a 20k road fleet
+                   stepped through both backends to equal states, then its
+                   fused and reference-shaped alerts equal (compare_paths);
+                   scenario_integrate on the card and on the CPU on the
+                   same draws for 10 steps, road switches included: equal
+                   road, mode and target_ok, positions within 1e-3 m; the
+                   road step and its physics under torch.profiler
   xla_path         make_step(cfg, backend="xla") at bench.py's XLA rows
                    (1k precise and 1k fast, city skew) and
                    make_step(cfg100k, chunk_size=8192) on a uniform 100k
@@ -95,9 +111,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    against torch.sort plus gathers; the launches per sort
 
 The line before the last lists the kernels with their launches (the
-detection kernels' on main_path, scene and service, the predict kernel's on
-predict_path and scene, the co-sort's on cosort_vs_plain; the sum, and each
-path's in launches_by_path), their times and their bounds; the last line
+detection kernels' on main_path, scene, service and scenario, the predict
+kernel's on predict_path and scene, the co-sort's on cosort_vs_plain; the
+sum, and each path's in launches_by_path), their times and their bounds;
+the last line
 is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -624,61 +641,87 @@ def by_key_oid(out, torch) -> list:
     return [x[o] for x in out]
 
 
-def certified_precise(cfg, run):
-    """bench.py's rule for a precise cell whose certificate is not 0
-    (bench.py:199-226, adopt_k): raise survivor_k by the counted shortfall,
-    up to bench.py's cap of 16, and double the survivor cap alongside (the
-    certificate also counts survivors beyond the cap), at most twice. The
-    fleet comes from a seed and detection never feeds back into physics, so
-    every attempt replays the same trajectories. `run(cfg)` returns (worst
-    alert_overflow, result). Returns (the configuration adopted, its worst
-    alert_overflow, its result, attempts); a cell that stays uncertified
-    comes back with its certificate for the caller to refuse."""
+def certified(cfg, run):
+    """bench.py's rule for a cell whose certificate is not 0 (bench.py:199-226,
+    adopt_k), at most twice. Fast mode raises max_alerts_per_object by the
+    counted shortfall, up to bench.py's cap of 16, and stops when it cannot
+    rise; precise mode raises survivor_k the same way and doubles the
+    survivor cap alongside (the certificate also counts survivors beyond
+    the cap). The fleet comes from a seed and detection never feeds back
+    into physics, so every attempt replays the same trajectories. `run(cfg)`
+    returns (worst alert_overflow, result). Returns (the configuration
+    adopted, its worst alert_overflow, its result, attempts); a cell that
+    stays uncertified comes back with its certificate for the caller to
+    refuse."""
     worst, res = run(cfg)
     tries = 1
     while worst > 0 and tries <= 2:
-        cfg = cfg.replace(detect=dataclasses.replace(
-            cfg.detect,
-            survivor_k=min(BENCH_K_MAX, cfg.detect.survivor_k + worst),
-            precise_survivor_cap=2 * cfg.survivor_cap))
+        if cfg.detect.mode == "fast":
+            k = cfg.alerts.max_alerts_per_object
+            if min(BENCH_K_MAX, k + worst) == k:
+                break
+            cfg = with_slots(cfg, "hits", min(BENCH_K_MAX, k + worst))
+        else:
+            cfg = cfg.replace(detect=dataclasses.replace(
+                cfg.detect,
+                survivor_k=min(BENCH_K_MAX, cfg.detect.survivor_k + worst),
+                precise_survivor_cap=2 * cfg.survivor_cap))
         worst, res = run(cfg)
         tries += 1
     return cfg, worst, res, tries
 
 
-def fused_steps(cfg, dist, seed, torch, dev):
-    """2 + REPEATS steps of make_step(cfg, backend="fused") on the fleet of
-    `seed`, the last REPEATS timed with CUDA events: (worst alert_overflow,
-    (state, last output, worst overflow, median ms per step, the detection
-    kernel's launches)). Fails unless every step launched the kernel
-    once."""
-    import tpu_collide_torch as tt
+# the rule's name from before it took fast cells
+certified_precise = certified
+
+
+def timed_steps(advance, torch) -> tuple:
+    """2 + REPEATS calls of advance() -> StepOutput, the last REPEATS timed
+    with CUDA events: (worst overflow, worst alert_overflow, last output,
+    median ms per step, the detection kernel's launches). Fails unless every
+    step launched the kernel once."""
     from tpu_collide_torch.kernels.fused_detect import fused_topk
-    from tpu_collide_torch.sim import generate_fleet
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    state = generate_fleet(gen, cfg, dist)
-    step = tt.make_step(cfg, backend="fused", device=dev)
-    worst_of = torch.zeros((), dtype=torch.int32, device=dev)
-    worst_ao = torch.zeros((), dtype=torch.int32, device=dev)
+    worst_of = worst_ao = None
     events = []
     fused_topk.launches = 0
     for i in range(2 + REPEATS):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        state, out = step(state, gen)
+        out = advance()
         b.record()
         if i >= 2:
             events.append((a, b))
-        worst_of = torch.maximum(worst_of, out.overflow)
-        worst_ao = torch.maximum(worst_ao, out.alert_overflow)
+        worst_of = out.overflow if worst_of is None \
+            else torch.maximum(worst_of, out.overflow)
+        worst_ao = out.alert_overflow if worst_ao is None \
+            else torch.maximum(worst_ao, out.alert_overflow)
     torch.cuda.synchronize()
     n_launch = fused_topk.launches
     if n_launch != 2 + REPEATS:
         raise AssertionError(f"{n_launch} kernel launches in "
                              f"{2 + REPEATS} fused steps")
     ms = statistics.median(a.elapsed_time(b) for a, b in events)
-    return int(worst_ao), (state, out, int(worst_of), ms, n_launch)
+    return int(worst_of), int(worst_ao), out, ms, n_launch
+
+
+def fused_steps(cfg, dist, seed, torch, dev):
+    """timed_steps of make_step(cfg, backend="fused") on the fleet of
+    `seed`: (worst alert_overflow, (state, last output, worst overflow,
+    median ms per step, the detection kernel's launches))."""
+    import tpu_collide_torch as tt
+    from tpu_collide_torch.sim import generate_fleet
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = generate_fleet(gen, cfg, dist)
+    step = tt.make_step(cfg, backend="fused", device=dev)
+    carry = [state]
+
+    def advance():
+        carry[0], out = step(carry[0], gen)
+        return out
+
+    worst_of, worst_ao, out, ms, n_launch = timed_steps(advance, torch)
+    return worst_ao, (carry[0], out, worst_of, ms, n_launch)
 
 
 def main_path_runs():
@@ -842,7 +885,7 @@ def predict_path_inputs(cfg, torch, dev):
 # the scene phase: calls of bench.py's Scene serving row (bench.py:307-321
 # times 60; 30 of each mode here), steps of the 100k Scene, predict calls
 SCENE_CALLS, SCENE_STEPS, SCENE_PREDICTS = 30, 10, 3
-# the survivor_k / cap chip_smoke.certified_precise adopts at 100k precise
+# the survivor_k / cap chip_smoke.certified adopts at 100k precise
 CERTIFIED_100K_PRECISE = (12, 400_000)
 # where the scene and service phases write their checkpoints (gitignored,
 # emptied after)
@@ -1481,6 +1524,316 @@ def service_phase(smi, torch, dev) -> dict:
     return launches
 
 
+# the scenario phase: the road fleet of 20k objects that fused_vs_xla compares
+# on, stepped SCENARIO_SMALL_STEPS times through both backends first; the
+# steps held card against CPU and the largest position difference allowed
+# (libm differs between the two); the steps under the profiler
+SCENARIO_SMALL, SCENARIO_SMALL_STEPS = 20_000, 3
+SCENARIO_CPU_STEPS, SCENARIO_CPU_TOL = 10, 1e-3
+SCENARIO_PROFILE_STEPS = 3
+
+
+def scenario_setup():
+    """(cfg, TrafficMap) of the scenario phase: bench.py's 100k 2D fast
+    configuration (bench.py:337-342) and the 100 x 100 grid map of 100 m
+    roads and up to 5 cities of tests/test_scenario.py:178, which covers its
+    10 km world with 202 roads of 10 km."""
+    from tpu_collide_torch.sim import TrafficMap
+    return bench_configs()[0], TrafficMap(seed=4).generate_grid_map(
+        100, 100, 100.0)
+
+
+def road_fleet(cfg, roads, seed, torch, dev):
+    """generate_fleet (uniform, `seed`) with every object road_constrained:
+    init_scenario draws its road, and it is snapped onto the road at a
+    fraction U(0.1, 0.9) of its length (tests/test_scenario.py:199-203)."""
+    from tpu_collide_torch.sim import generate_fleet, init_scenario
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = generate_fleet(gen, cfg, "uniform")
+    scen = init_scenario(cfg.num_objects, "road_constrained", roads, gen,
+                         device=dev)
+    frac = torch.rand(cfg.num_objects, generator=gen, device=dev) * 0.8 + 0.1
+    r = scen.road.long()
+    pos = state.pos.clone()
+    pos[:, :2] = roads.start[r] + (frac * roads.length[r])[:, None] \
+        * roads.dirn[r]
+    return state.replace(pos=pos), scen
+
+
+def dest_fleet(cfg, seed, torch, dev):
+    """generate_fleet (uniform, `seed`) with every object
+    destination_oriented and no target yet."""
+    from tpu_collide_torch.sim import generate_fleet, init_scenario
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (generate_fleet(gen, cfg, "uniform"),
+            init_scenario(cfg.num_objects, "destination_oriented",
+                          device=dev))
+
+
+def scenario_steps(cfg, fleet, tables, seed, torch, dev):
+    """timed_steps of make_scenario_step(cfg, roads, cities,
+    backend="fused") from `fleet` (state, scenario state), its generator
+    seeded with `seed`: (worst alert_overflow, (state, scenario state, last
+    output, worst overflow, median ms per step, the detection kernel's
+    launches))."""
+    from tpu_collide_torch.sim import make_scenario_step
+    step = make_scenario_step(cfg, *tables, backend="fused", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    carry = list(fleet)
+
+    def advance():
+        carry[0], carry[1], out = step(carry[0], carry[1], gen)
+        return out
+
+    worst_of, worst_ao, out, ms, n_launch = timed_steps(advance, torch)
+    return worst_ao, (carry[0], carry[1], out, worst_of, ms, n_launch)
+
+
+def to_device(x, dev):
+    """A dataclass of tensors (a state, a scenario state, a table) with
+    every tensor moved to `dev`."""
+    return dataclasses.replace(x, **{f.name: getattr(x, f.name).to(dev)
+                                     for f in dataclasses.fields(x)})
+
+
+def device_profile(fn, n, torch) -> dict:
+    """torch.profiler over n calls of fn, each followed by a synchronise:
+    wall and device-busy ms per call, the idle share, and the device
+    launches per call (copies and fills not counted)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    busy, launches = 0.0, 0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            busy += ev.time_range.elapsed_us()
+            launches += not ev.name.startswith(("Memcpy", "Memset"))
+    if busy == 0.0:
+        raise AssertionError("the profiler recorded no device time")
+    busy_ms = busy / 1e3 / n
+    return dict(wall_ms=wall, device_busy_ms=busy_ms,
+                idle_share=1.0 - busy_ms / wall, launches=launches / n)
+
+
+def scenario_phase(smi, torch, dev) -> dict:
+    """The device scenario modes on the card (scenario_setup): a 100k road
+    fleet in fast and in precise mode and a 100k destination fleet through
+    make_scenario_step(backend="fused"), each certified by bench.py's rule
+    (certified); the detection kernel against its plain version on the
+    stepped road fleet in both modes; fused against reference-shaped alerts
+    on a 20k road fleet stepped through both backends; scenario_integrate
+    on the card against the CPU on the same draws; a profile of the road
+    step. Emits one line per part; returns the detection kernel's launches
+    in the phase by mode, and its largest slot error against the plain
+    version by mode."""
+    from tpu_collide_torch.engine import detect_and_alerts
+    from tpu_collide_torch.kernels.cell_list import build_cell_list
+    from tpu_collide_torch.kernels.fused_detect import (fused_topk,
+                                                        fused_topk_plain,
+                                                        slot_count)
+    from tpu_collide_torch.sim import (build_city_table, build_road_table,
+                                       make_scenario_step,
+                                       scenario_integrate)
+    from tpu_collide_torch.sim.scenario import scenario_draws
+    cfg0, tmap = scenario_setup()
+    roads, _ = build_road_table(tmap, device=dev)
+    cities = build_city_table(tmap, device=dev)
+    n = cfg0.num_objects
+    road = road_fleet(cfg0, roads, 101, torch, dev)
+    launches = {"hits": 0, "survivors": 0}
+    err = {"hits": 0.0, "survivors": 0.0}
+    mode_of = {"fast": "hits", "precise": "survivors"}
+
+    # ---- the 100k fleets through the fused scenario step ----
+    precise = cfg0.replace(detect=dataclasses.replace(cfg0.detect,
+                                                      mode="precise"))
+    cells = (("100k_2d_road", cfg0, road),
+             ("100k_2d_road_precise", precise, road),
+             ("100k_2d_dest", cfg0, dest_fleet(cfg0, 102, torch, dev)))
+    stepped = {}
+    for seed, (name, cfg, fleet) in enumerate(cells):
+        t_part = time.perf_counter()
+        mode = mode_of[cfg.detect.mode]
+        tries = []
+
+        def drive(c):
+            res = scenario_steps(c, fleet, (roads, cities), 500 + seed,
+                                 torch, dev)
+            tries.append(dict(k=slot_count(c, mode),
+                              survivor_cap=c.survivor_cap,
+                              worst_alert_overflow=res[0]))
+            return res
+
+        cfg, worst_ao, res, attempts = certified(cfg, drive)
+        state, scen, out, worst_of, ms, n_launch = res
+        launches[mode] += n_launch
+        check_output(out, cfg, torch)
+        k = slot_count(cfg, mode)
+        if worst_of != 0 or worst_ao != 0:
+            raise AssertionError(
+                f"{name}: overflow {worst_of}, alert_overflow {worst_ao} at "
+                f"k {k}, survivor cap {cfg.survivor_cap}, after {attempts} "
+                "attempts")
+        if int(out.num_alive) != n:
+            raise AssertionError(f"{name}: num_alive {int(out.num_alive)}")
+        line = dict(
+            phase="scenario", part=name, mode=mode, ms_per_step=ms,
+            steps_timed=REPEATS, warmup_steps=2, kernel_launches=n_launch,
+            kernel_launches_per_step=n_launch / (2 + REPEATS),
+            attempts=attempts, tries=tries, k=k,
+            max_alerts_per_object=cfg.alerts.max_alerts_per_object,
+            survivor_k=cfg.detect.survivor_k, survivor_cap=cfg.survivor_cap,
+            num_risks=int(out.num_risks), alerts=int(out.alerts.count),
+            max_risk=float(out.max_risk), worst_overflow=worst_of,
+            worst_alert_overflow=worst_ao)
+        if fleet is road:
+            # every object still on its road's line
+            r = scen.road.long()
+            rel = state.pos[:, :2] - roads.start[r]
+            along = (rel * roads.dirn[r]).sum(dim=1, keepdim=True)
+            off = float((rel - along * roads.dirn[r]).abs().max())
+            if off > 1e-2:
+                raise AssertionError(f"{name}: {off} m off the road line")
+            line.update(off_road_m=off, road_switches=int(
+                (scen.road != fleet[1].road).sum()))
+        else:
+            inside = ((state.pos[:, None, :2] - cities.center[None])
+                      .norm(dim=2) < cities.radius[None]).any(dim=1)
+            line.update(targets_set=int(scen.target_ok.sum()),
+                        in_a_city=int(inside.sum()),
+                        in_a_city_at_start=int(
+                            ((fleet[0].pos[:, None, :2] - cities.center[None])
+                             .norm(dim=2) < cities.radius[None])
+                            .any(dim=1).sum()))
+        line.update(seconds=time.perf_counter() - t_part, card=smi)
+        stepped[name] = (cfg, state)
+        emit(line)
+
+    # ---- the kernel against its plain version on the stepped road fleet --
+    for name in ("100k_2d_road", "100k_2d_road_precise"):
+        cfg, state = stepped[name]
+        mode = mode_of[cfg.detect.mode]
+        cl = build_cell_list(state, cfg)
+        k = slot_count(cfg, mode)
+        got, want = fused_topk(cl, cfg, mode), fused_topk_plain(cl, cfg, mode)
+        torch.cuda.synchronize()
+        res = compare_slots(got, want, k, torch)
+        err[mode] = max(err[mode], res["max_abs_err"])
+        emit(dict(phase="scenario", part="kernel_vs_plain", fleet=name,
+                  mode=mode, n=cl.n, k=k, **res,
+                  largest_emitted=int(got.emitted.max()), **walk_edges(cl),
+                  ms=median_ms(lambda: fused_topk(cl, cfg, mode), torch),
+                  plain_ms=median_ms(lambda: fused_topk_plain(cl, cfg, mode),
+                                     torch, repeats=3),
+                  kernel_bound=detect_bound(cl, cfg, mode, got, torch),
+                  card=smi))
+
+    # ---- fused against reference-shaped detection on a 20k road fleet ----
+    cfg = stepped["100k_2d_road"][0].replace(num_objects=SCENARIO_SMALL)
+    fleet = road_fleet(cfg, roads, 103, torch, dev)
+    ends = {}
+    fused_topk.launches = 0
+    for backend in ("xla", "fused"):
+        step = make_scenario_step(cfg, roads, cities, backend=backend,
+                                  device=dev)
+        gen = torch.Generator(device=dev).manual_seed(600)
+        st, sc = fleet
+        for _ in range(SCENARIO_SMALL_STEPS):
+            st, sc, out = step(st, sc, gen)
+        check_output(out, cfg, torch)
+        ends[backend] = (st, sc, out)
+    torch.cuda.synchronize()
+    n_launch = fused_topk.launches
+    launches["hits"] += n_launch
+    if n_launch != SCENARIO_SMALL_STEPS:
+        raise AssertionError(f"20k_2d_road: {n_launch} kernel launches in "
+                             f"{SCENARIO_SMALL_STEPS} fused steps")
+    (sx, cx, ox), (sf, cf, of) = ends["xla"], ends["fused"]
+    if not states_equal(sx, sf, torch) or not all(
+            torch.equal(getattr(cx, f.name), getattr(cf, f.name))
+            for f in dataclasses.fields(cx)):
+        raise AssertionError("20k_2d_road: the backends stepped to different "
+                             "states")
+    line = compare_paths("20k_2d_road", sf, cfg, detect_and_alerts, 1 << 18,
+                         smi, torch)
+    if not line["compared"]:
+        raise AssertionError(f"20k_2d_road: not compared: {line}")
+    certs = lambda o: dict(num_risks=int(o.num_risks),
+                           overflow=int(o.overflow),
+                           alert_overflow=int(o.alert_overflow))
+    emit(dict(line, phase="scenario", part="fused_vs_xla",
+              steps=SCENARIO_SMALL_STEPS, kernel_launches=n_launch,
+              xla_step=certs(ox), fused_step=certs(of)))
+
+    # ---- scenario_integrate on the card against the CPU ----
+    # the road fleet with every tenth object moved to within 10 m of its
+    # road's end, so that the road switch and the turn at the map's border
+    # run inside the steps
+    st, sc = road
+    gen = torch.Generator(device=dev).manual_seed(700)
+    r = sc.road[::10].long()
+    back = torch.rand(r.shape, generator=gen, device=dev) * 9.5 + 0.5
+    pos = st.pos.clone()
+    pos[::10, :2] = roads.start[r] + (roads.length[r] - back)[:, None] \
+        * roads.dirn[r]
+    vel = st.vel.clone()
+    vel[::10, :2] = 13.0 * roads.dirn[r]
+    st = st.replace(pos=pos, vel=vel)
+    cpu = torch.device("cpu")
+    tables_cpu = (to_device(roads, cpu), to_device(cities, cpu))
+    st_c, sc_c = to_device(st, cpu), to_device(sc, cpu)
+    for _ in range(SCENARIO_CPU_STEPS):
+        draws = scenario_draws(n, cities.radius.shape[0], cfg0, gen, dev)
+        st, sc = scenario_integrate(st, sc, None, cfg0, roads, cities, draws)
+        st_c, sc_c = scenario_integrate(st_c, sc_c, None, cfg0, *tables_cpu,
+                                        [d.cpu() for d in draws])
+    diff = float((st.pos.cpu() - st_c.pos).abs().max())
+    same = {f: torch.equal(getattr(sc, f).cpu(), getattr(sc_c, f))
+            for f in ("road", "mode", "target_ok")}
+    if not all(same.values()) or diff > SCENARIO_CPU_TOL:
+        raise AssertionError(f"card against CPU: discrete state equal "
+                             f"{same}, positions {diff} m apart")
+    emit(dict(phase="scenario", part="card_vs_cpu", fleet="100k_2d_road",
+              steps=SCENARIO_CPU_STEPS, max_pos_diff_m=diff,
+              pos_bit_equal=torch.equal(st.pos.cpu(), st_c.pos),
+              max_vel_diff=float((st.vel.cpu() - st_c.vel).abs().max()),
+              max_heading_diff=float((st.heading.cpu() - st_c.heading)
+                                     .abs().max()),
+              discrete_equal=same,
+              road_switches=int((sc.road != road[1].road).sum()),
+              near_end=int(r.numel()), card=smi))
+
+    # ---- profile of the road step, and of its physics alone ----
+    cfg = stepped["100k_2d_road"][0]
+    step = make_scenario_step(cfg, roads, cities, backend="fused",
+                              device=dev)
+    gen = torch.Generator(device=dev).manual_seed(800)
+    carry = list(road)
+
+    def one_step():
+        carry[0], carry[1], _ = step(carry[0], carry[1], gen)
+
+    for _ in range(2):
+        one_step()
+    whole = device_profile(one_step, SCENARIO_PROFILE_STEPS, torch)
+    physics = device_profile(
+        lambda: scenario_integrate(carry[0], carry[1], gen, cfg, roads,
+                                   cities), SCENARIO_PROFILE_STEPS, torch)
+    emit(dict(phase="scenario", part="profile", config="100k_2d_road",
+              calls=SCENARIO_PROFILE_STEPS, step=whole,
+              scenario_integrate=physics,
+              integrate_launch_share=physics["launches"] / whole["launches"],
+              card=smi))
+    return dict(launches=launches, max_abs_err=err)
+
+
 def main() -> None:
     import torch
 
@@ -1624,17 +1977,14 @@ def main() -> None:
     for seed, (name, cfg, dist) in enumerate(runs):
         mode = mode_of[cfg.detect.mode]
         drive = lambda c: fused_steps(c, dist, 100 + seed, torch, dev)
-        if mode == "survivors":
-            cfg, worst_ao, res, attempts = certified_precise(cfg, drive)
-        else:
-            (worst_ao, res), attempts = drive(cfg), 1
+        cfg, worst_ao, res, attempts = certified(cfg, drive)
         state, out, worst_of, ms_per_step, n_launch = res
         launches[mode] += n_launch
         check_output(out, cfg, torch)
         if worst_of != 0 or worst_ao != 0:
             raise AssertionError(
                 f"{name}: overflow {worst_of}, alert_overflow {worst_ao} at "
-                f"survivor_k {cfg.detect.survivor_k}, survivor cap "
+                f"k {slot_count(cfg, mode)}, survivor cap "
                 f"{cfg.survivor_cap}, after {attempts} attempts")
         if int(out.num_alive) != cfg.num_objects:
             raise AssertionError(f"{name}: num_alive {int(out.num_alive)}")
@@ -1642,6 +1992,7 @@ def main() -> None:
             phase="main_path", config=name, distribution=dist,
             ms_per_step=ms_per_step, steps_timed=REPEATS,
             kernel_launches=n_launch, attempts=attempts,
+            max_alerts_per_object=cfg.alerts.max_alerts_per_object,
             survivor_k=cfg.detect.survivor_k, survivor_cap=cfg.survivor_cap,
             num_risks=int(out.num_risks), alerts=int(out.alerts.count),
             num_pairs_checked=int(out.num_pairs_checked),
@@ -1846,6 +2197,10 @@ def main() -> None:
     # ---- service: the service node over HTTP ----
     service_launches = service_phase(smi, torch, dev)
 
+    # ---- scenario: the device movement modes at 100k ----
+    scenario = scenario_phase(smi, torch, dev)
+    scenario_launches = scenario["launches"]
+
     # ---- xla_path: the reference-shaped step ----
     cfg1k_p = tt.SystemConfig(num_objects=1000,
                               detect=DetectionConfig(mode="precise"))
@@ -2039,11 +2394,14 @@ def main() -> None:
                     source="tpu_collide_torch/csrc/fused_detect.cu",
                     replaces="tpu_collide/kernels/fused_detect.py:144",
                     launches=(launches[mode] + scene_launches[mode]
-                              + service_launches[mode]),
+                              + service_launches[mode]
+                              + scenario_launches[mode]),
                     launches_by_path=dict(main_path=launches[mode],
                                           scene=scene_launches[mode],
-                                          service=service_launches[mode]),
-                    max_abs_err=err[mode],
+                                          service=service_launches[mode],
+                                          scenario=scenario_launches[mode]),
+                    max_abs_err=max(err[mode],
+                                    scenario["max_abs_err"][mode]),
                     ms=kernel_ms[cfg_name][0],
                     plain_ms=kernel_ms[cfg_name][1],
                     bound_ms=bounds[cfg_name]["bound_ms"],

@@ -7,8 +7,8 @@
   * conform_fleet zeroes z, vz, az of a 2D fleet as the JAX function does;
   * oids past 2^24 come through the fused step intact;
   * the fused step's num_pairs_checked is int32, as the JAX step's;
-  * chip_smoke.certified_precise raises survivor_k and the survivor cap the
-    way bench.py's adopt_k does.
+  * chip_smoke.certified raises survivor_k and the survivor cap (precise),
+    or max_alerts_per_object (fast), the way bench.py's adopt_k does.
 """
 import dataclasses
 
@@ -279,3 +279,40 @@ def test_certified_precise_adopts_k_and_cap():
     got, ao, _, tries = cs.certified_precise(cfg, run_with([100, 7, 3]))
     assert seen == [(8, 4096), (16, 8192), (16, 16384)]
     assert (ao, tries) == (3, 3) and got.detect.survivor_k == 16
+
+
+def test_certified_adopts_k_in_fast_mode():
+    """chip_smoke.certified on a fast cell (bench.py:201-209):
+    max_alerts_per_object rises by the counted shortfall up to 16, at most
+    twice, and the rule stops when k cannot rise; the survivor settings
+    stay as they were."""
+    import chip_smoke as cs
+    cfg = tt.SystemConfig(num_objects=1000,
+                          detect=tt.DetectionConfig(mode="fast"),
+                          alerts=tt.AlertConfig(max_alerts_per_object=8))
+    seen = []
+
+    def run_with(worst):
+        it = iter(worst)
+
+        def run(c):
+            seen.append((c.alerts.max_alerts_per_object, c.detect.survivor_k,
+                         c.survivor_cap))
+            return next(it), "out"
+        return run
+
+    got, ao, out, tries = cs.certified(cfg, run_with([5, 0]))
+    assert (ao, out, tries) == (0, "out", 2)
+    assert seen == [(8, 8, 4096), (13, 8, 4096)]
+    assert got.alerts.max_alerts_per_object == 13
+    seen.clear()
+    got, ao, _, tries = cs.certified(cfg, run_with([0]))
+    assert got is cfg and ao == 0 and tries == 1
+    seen.clear()
+    got, ao, _, tries = cs.certified(cfg, run_with([3, 2, 1]))
+    assert [s[0] for s in seen] == [8, 11, 13]
+    assert (ao, tries) == (1, 3)
+    seen.clear()
+    got, ao, _, tries = cs.certified(cfg, run_with([100, 7, 3]))
+    assert [s[0] for s in seen] == [8, 16]
+    assert (ao, tries) == (7, 2) and got.alerts.max_alerts_per_object == 16

@@ -7,7 +7,7 @@ The fused tail (kernels/refine.py) selects hot rows and the scene top-A
 lower index; the survivor compaction, whose cap is a large share of its
 input, always takes core/ops.stable_topk. This tool drives chip_smoke.py's
 four main_path configurations (the precise ones at the survivor_k and
-survivor cap that chip_smoke.certified_precise adopts) with three
+survivor cap that chip_smoke.certified adopts) with three
 selections at those three sites in turns, first in the order given and
 then reversed, inside one process:
 
@@ -54,7 +54,7 @@ def main() -> None:
         drive = lambda c: cs.fused_steps(c, dist, 100 + seed, torch, dev)
         attempts = 1
         if cfg.detect.mode == "precise":
-            cfg, _, _, attempts = cs.certified_precise(cfg, drive)
+            cfg, _, _, attempts = cs.certified(cfg, drive)
         line = dict(phase="tie_order", config=name,
                     survivor_k=cfg.detect.survivor_k,
                     survivor_cap=cfg.survivor_cap, attempts=attempts,
