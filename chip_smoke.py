@@ -91,6 +91,25 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    same draws for 10 steps, road switches included: equal
                    road, mode and target_ok, positions within 1e-3 m; the
                    road step and its physics under torch.profiler
+  sharded          the sharded step (sharded_phase) at
+                   tools/big_mesh_dryrun.py's deployment, 100k objects on
+                   an 8x2 grid of shards (halo 1024, migration 256), all
+                   16 on the card: the fused sharded step in fast and
+                   precise mode, certified by bench.py's rule, conserved
+                   on every step (dropped 0, num_alive 100k, every oid
+                   once), one detection launch per shard a step; one step
+                   against the single-device fused step (equal positions,
+                   risks and alert sets, flips reported); the kernel
+                   bit-equal to its plain version on one shard's cell list
+                   of owned rows and marked halo mirrors, both modes; the
+                   sharded scenario step on the 20k road fleet on a 4x2
+                   grid against the single-device one (roads and modes
+                   kept); a 2x2x2 mesh in a 3D world (steps,
+                   make_sharded_ingest of 1,000 updates,
+                   make_sharded_detect against the single-device
+                   detection); ms/step of the 16-shard step, a one-shard
+                   mesh and the single-device step in turns, and
+                   torch.profiler's launches and idle share
   xla_path         make_step(cfg, backend="xla") at bench.py's XLA rows
                    (1k precise and 1k fast, city skew) and
                    make_step(cfg100k, chunk_size=8192) on a uniform 100k
@@ -111,7 +130,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    against torch.sort plus gathers; the launches per sort
 
 The line before the last lists the kernels with their launches (the
-detection kernels' on main_path, scene, service and scenario, the predict
+detection kernels' on main_path, scene, service, scenario and sharded, the
+predict
 kernel's on predict_path and scene, the co-sort's on cosort_vs_plain; the
 sum, and each path's in launches_by_path), their times and their bounds;
 the last line
@@ -461,15 +481,16 @@ def alert_dict(alerts) -> dict:
 
 
 def check_output(out, cfg, torch) -> None:
-    """The repo's own checks of a step's output: shapes, finite values,
+    """The repo's own checks of a step's output: shapes (a sharded step's
+    alert buffers one after another, count per shard), finite values,
     counters in range (the callers decide which certificates must be
     0)."""
     a = out.alerts
-    size = cfg.alerts.max_scene_alerts
+    size = cfg.alerts.max_scene_alerts * cfg.shard.total_shards
     if a.valid.shape != (size,) or a.col_pos.shape != (size, 3):
         raise AssertionError("alert buffer shape")
     v = a.valid
-    if int(a.count) != int(v.sum()):
+    if int(a.count.sum()) != int(v.sum()):
         raise AssertionError("alert count")
     for f in ("risk", "ttc", "distance", "rel_speed"):
         if not bool(torch.isfinite(getattr(a, f)[v]).all()):
@@ -1598,8 +1619,9 @@ def to_device(x, dev):
 
 def device_profile(fn, n, torch) -> dict:
     """torch.profiler over n calls of fn, each followed by a synchronise:
-    wall and device-busy ms per call, the idle share, and the device
-    launches per call (copies and fills not counted)."""
+    wall and device-busy ms per call, the idle share, the device launches
+    per call (copies and fills not counted), and the five device kernels
+    with the most busy time (ms and launches per call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1610,16 +1632,22 @@ def device_profile(fn, n, torch) -> dict:
             fn()
             torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n
-    busy, launches = 0.0, 0
+    busy, launches, by_name = 0.0, 0, {}
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
-            busy += ev.time_range.elapsed_us()
+            us = ev.time_range.elapsed_us()
+            busy += us
             launches += not ev.name.startswith(("Memcpy", "Memset"))
+            t, c = by_name.get(ev.name, (0.0, 0))
+            by_name[ev.name] = (t + us, c + 1)
     if busy == 0.0:
         raise AssertionError("the profiler recorded no device time")
     busy_ms = busy / 1e3 / n
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
     return dict(wall_ms=wall, device_busy_ms=busy_ms,
-                idle_share=1.0 - busy_ms / wall, launches=launches / n)
+                idle_share=1.0 - busy_ms / wall, launches=launches / n,
+                top=[dict(name=name[:80], ms=t / 1e3 / n, launches=c / n)
+                     for name, (t, c) in top])
 
 
 def scenario_phase(smi, torch, dev) -> dict:
@@ -1832,6 +1860,472 @@ def scenario_phase(smi, torch, dev) -> dict:
               integrate_launch_share=physics["launches"] / whole["launches"],
               card=smi))
     return dict(launches=launches, max_abs_err=err)
+
+
+# ---- the sharded step ------------------------------------------------------
+
+# the sharded phase's fused steps: warm-ups, then steps timed with CUDA
+# events; the three steps of (f) are timed in SHARDED_ROUNDS turns of
+# SHARDED_TURN steps each
+SHARDED_WARMUP, SHARDED_STEPS = 2, 5
+SHARDED_ROUNDS, SHARDED_TURN = 3, 3
+# (d): the scenario phase's 20k road fleet at the k adopted for its 100k
+# road fleet (16); (e): the 3D mesh of tests/test_mesh3d.py:27-37 at 5,000
+# objects, 1,000 updates
+SHARDED_ROAD_STEPS, SHARDED_ROAD_K = 3, 16
+SHARDED_3D_N, SHARDED_3D_STEPS, SHARDED_INGEST = 5_000, 3, 1_000
+
+
+def sharded_config(det_mode="fast", shards=(8, 2)):
+    """tools/big_mesh_dryrun.py:95-115's deployment at bench.py's 100k
+    size: the 10 km 2D world, 100 m cells of capacity 64, k 8,
+    count_checked off, 32768 alerts per shard, deterministic physics, a
+    shards[0] x shards[1] grid with a halo of 1024 and migration buffers
+    of 256."""
+    import tpu_collide_torch as tt
+    from tpu_collide_torch.core.config import (AlertConfig, DetectionConfig,
+                                               GridConfig, ShardConfig,
+                                               SimConfig, WorldConfig)
+    return tt.SystemConfig(
+        num_objects=100_000, world=WorldConfig(hi=(10000.0, 10000.0, 0.0)),
+        grid=GridConfig(cell_size=100.0, cell_capacity=64),
+        detect=DetectionConfig(mode=det_mode, count_checked=False),
+        sim=SimConfig(accel_change_prob=0.0),
+        alerts=AlertConfig(max_scene_alerts=32768, max_alerts_per_object=8),
+        shard=ShardConfig(num_shards=shards[0], num_shards_y=shards[1],
+                          halo_capacity=1024, migrate_capacity=256))
+
+
+def single_shard(cfg, budget):
+    """cfg on one device: one shard, a scene budget of `budget`."""
+    from tpu_collide_torch.core.config import ShardConfig
+    return cfg.replace(shard=ShardConfig(), alerts=dataclasses.replace(
+        cfg.alerts, max_scene_alerts=budget))
+
+
+def conserved(name, states, n, torch):
+    """The collected states, after checking that every oid 0 .. n-1 is
+    alive in exactly one slot."""
+    from tpu_collide_torch.shard import collect_state
+    host = collect_state(states)
+    oids = host.oid[host.alive].long()
+    if oids.numel() != n or bool((torch.bincount(oids, minlength=n)
+                                  != 1).any()):
+        raise AssertionError(f"{name}: {oids.numel()} alive objects, not "
+                             f"each of the {n} oids once")
+    return host
+
+
+def by_oid(state, torch):
+    """Row of each oid among the alive rows of `state` ([max oid + 1])."""
+    alive = torch.nonzero(state.alive).flatten()
+    oids = state.oid[alive].long()
+    inv = torch.full((int(oids.max()) + 1,), -1, dtype=torch.int64,
+                     device=oids.device)
+    inv[oids] = alive
+    return inv
+
+
+def sharded_steps(cfg, fleet, torch, dev):
+    """SHARDED_WARMUP + SHARDED_STEPS fused sharded steps of `fleet` on
+    cfg's mesh, the last SHARDED_STEPS timed with CUDA events: (worst
+    alert_overflow, (states, last output, worst overflow, median ms per
+    step, the detection kernel's launches, dropped over all steps, the
+    least num_alive, the mesh)). Fails unless every step launched the
+    kernel once per shard."""
+    from tpu_collide_torch.kernels.fused_detect import fused_topk
+    from tpu_collide_torch.shard import (distribute_state, make_mesh,
+                                         make_sharded_step,
+                                         shard_generators)
+    mesh = make_mesh(cfg, device=dev)
+    states = distribute_state(fleet, cfg, mesh)
+    step = make_sharded_step(cfg, mesh, backend="fused")
+    gens = shard_generators(mesh, 1)
+    worst_of = worst_ao = dropped = alive = None
+    events = []
+    fused_topk.launches = 0
+    for i in range(SHARDED_WARMUP + SHARDED_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        states, out, drop = step(states, gens)
+        b.record()
+        if i >= SHARDED_WARMUP:
+            events.append((a, b))
+        worst_of = out.overflow if worst_of is None \
+            else torch.maximum(worst_of, out.overflow)
+        worst_ao = out.alert_overflow if worst_ao is None \
+            else torch.maximum(worst_ao, out.alert_overflow)
+        dropped = drop.sum() if dropped is None else dropped + drop.sum()
+        alive = out.num_alive if alive is None \
+            else torch.minimum(alive, out.num_alive)
+    torch.cuda.synchronize()
+    n_launch = fused_topk.launches
+    if n_launch != (SHARDED_WARMUP + SHARDED_STEPS) * mesh.size:
+        raise AssertionError(f"{n_launch} kernel launches in "
+                             f"{SHARDED_WARMUP + SHARDED_STEPS} steps of "
+                             f"{mesh.size} shards")
+    ms = statistics.median(a.elapsed_time(b) for a, b in events)
+    return int(worst_ao), (states, out, int(worst_of), ms, n_launch,
+                           int(dropped), int(alive), mesh)
+
+
+def sharded_vs_single(name, cfg, fleet, smi, torch, dev) -> dict:
+    """One sharded fused step of `fleet` against one single-device fused
+    step of it (make_step(backend="fused"), a scene budget of 2^20 so that
+    it cannot bind): equal positions by oid, equal num_risks, equal
+    unordered alert sets (values within ALERT_TOL, priority exact), every
+    certificate 0; a pair in one set only is reported with the threshold
+    it sits nearest (flip_margins) and allowed within FLIP_MARGIN of it."""
+    import tpu_collide_torch as tt
+    from tpu_collide_torch.shard import (collect_state, distribute_state,
+                                         make_mesh, make_sharded_step,
+                                         shard_generators)
+    mesh = make_mesh(cfg, device=dev)
+    step = make_sharded_step(cfg, mesh, backend="fused")
+    states, so, drop = step(distribute_state(fleet, cfg, mesh),
+                            shard_generators(mesh, 2))
+    # the reference's scene budget, survivor cap and hot top-up as large as
+    # the 16 shards' together (none changes a value, only what is kept)
+    ref = single_shard(cfg, 1 << 20)
+    ref = ref.replace(detect=dataclasses.replace(
+        ref.detect, precise_survivor_cap=4 * cfg.num_objects,
+        hot_topup=cfg.detect.hot_topup * cfg.shard.total_shards))
+    st1, o1 = tt.make_step(ref, backend="fused", device=dev)(
+        fleet, torch.Generator(device=dev).manual_seed(2))
+    host = collect_state(states)
+    rows = by_oid(host, torch)[st1.oid.long()]
+    pos_diff = float((host.pos[rows] - st1.pos).abs().max())
+    certs = dict(sharded_overflow=int(so.overflow),
+                 sharded_alert_overflow=int(so.alert_overflow),
+                 single_overflow=int(o1.overflow),
+                 single_alert_overflow=int(o1.alert_overflow),
+                 dropped=int(drop.sum()))
+    per_shard = so.alerts.count
+    if any(certs.values()) or int(per_shard.max()) >= \
+            cfg.alerts.max_scene_alerts or int(o1.alerts.count) >= (1 << 20):
+        raise AssertionError(f"{name}: not comparable: {certs}, per-shard "
+                             f"alerts up to {int(per_shard.max())}")
+    sm, fm = unordered(so.alerts), unordered(o1.alerts)
+    inv = by_oid(st1, torch).cpu()
+    flips = []
+    for pair in sorted(set(sm) ^ set(fm)):
+        risk = (sm.get(pair) or fm.get(pair))[0]
+        m = flip_margins(st1, ref, int(inv[pair[0]]), int(inv[pair[1]]),
+                         risk)
+        near = min(m, key=lambda t: abs(m[t]))
+        flips.append(dict(pair=pair, only_in="sharded" if pair in sm
+                          else "single", threshold=near, margin=m[near]))
+    far = [f for f in flips if abs(f["margin"]) > FLIP_MARGIN]
+    common = set(sm) & set(fm)
+    d = max((abs(x - y) for key in common
+             for x, y in zip(sm[key][:4], fm[key][:4])), default=0.0)
+    line = dict(phase="sharded", part="vs_single_device", config=name,
+                k=cfg.alerts.max_alerts_per_object,
+                survivor_k=cfg.detect.survivor_k, **certs,
+                num_risks_sharded=int(so.num_risks),
+                num_risks_single=int(o1.num_risks), pairs=len(common),
+                alerts_per_shard_max=int(per_shard.max()), flips=flips,
+                max_abs_diff=d, max_pos_diff=pos_diff, card=smi)
+    if far or not common or pos_diff != 0.0 or d > ALERT_TOL \
+            or any(sm[key][4] != fm[key][4] for key in common) \
+            or abs(line["num_risks_sharded"] - line["num_risks_single"]) \
+            > 2 * len(flips):
+        raise AssertionError(f"{name}: sharded and single-device steps "
+                             f"differ: {line}")
+    return line
+
+
+def sharded_phase(smi, torch, dev) -> dict:
+    """The sharded step on the card (tools/big_mesh_dryrun.py's deployment
+    at 100k, 16 shards on the one card): (a) the fused sharded step in fast
+    and precise mode, certified by bench.py's rule, conservation on every
+    step; (b) one step against the single-device fused step; (c) the
+    detection kernel against its plain version on one shard's cell list
+    of owned rows and marked halo mirrors, both modes; (d) the sharded
+    scenario step on the scenario phase's 20k road fleet on a 4x2 grid
+    against the single-device scenario step; (e) a 2x2x2 mesh in a 3D world:
+    steps, make_sharded_ingest and make_sharded_detect; (f) ms/step of the
+    16-shard step, a one-shard mesh and the single-device step in turns,
+    and a torch.profiler pass. Emits one line per part; returns the
+    detection kernel's launches on the sharded path by mode, its largest
+    slot error against the plain version by mode, and its times on the
+    halo-extended cell list."""
+    import tpu_collide_torch as tt
+    from tpu_collide_torch.core.config import (AlertConfig, GridConfig,
+                                               ShardConfig, SimConfig,
+                                               WorldConfig)
+    from tpu_collide_torch.engine import detect_and_alerts
+    from tpu_collide_torch.kernels.cell_list import build_cell_list
+    from tpu_collide_torch.kernels.fused_detect import (fused_topk,
+                                                        fused_topk_plain,
+                                                        slot_count)
+    from tpu_collide_torch.shard import (collect_state, distribute_state,
+                                         make_mesh, make_sharded_detect,
+                                         make_sharded_ingest,
+                                         make_sharded_scenario_step,
+                                         make_sharded_step, shard_generators,
+                                         shard_slots)
+    from tpu_collide_torch.shard.step import _default_walls, _halo_extend
+    from tpu_collide_torch.sim import (ScenarioState, build_city_table,
+                                       build_road_table, generate_fleet,
+                                       make_scenario_step)
+    mode_of = {"fast": "hits", "precise": "survivors"}
+    launches = {"hits": 0, "survivors": 0}
+    err = {"hits": 0.0, "survivors": 0.0}
+    kernel = {}
+    cfg0 = sharded_config()
+    n = cfg0.num_objects
+    fleet = generate_fleet(torch.Generator(device=dev).manual_seed(0), cfg0,
+                           "uniform")
+    adopted = {}
+
+    # ---- (a) the 16-shard fused step, certified, and (c) its kernel ----
+    for det_mode, mode in mode_of.items():
+        t_part = time.perf_counter()
+        tries = []
+
+        def drive(c):
+            res = sharded_steps(c, fleet, torch, dev)
+            tries.append(dict(k=slot_count(c, mode),
+                              survivor_cap=c.survivor_cap,
+                              worst_alert_overflow=res[0]))
+            return res
+
+        cfg, worst_ao, res, attempts = certified(sharded_config(det_mode),
+                                                 drive)
+        states, out, worst_of, ms, n_launch, dropped, alive, mesh = res
+        launches[mode] += n_launch
+        check_output(out, cfg, torch)
+        if worst_of or worst_ao or dropped or alive != n:
+            raise AssertionError(
+                f"sharded {det_mode}: overflow {worst_of}, alert_overflow "
+                f"{worst_ao}, dropped {dropped}, least num_alive {alive} "
+                f"after {attempts} attempts")
+        conserved(f"sharded {det_mode}", states, n, torch)
+        adopted[det_mode] = cfg
+        emit(dict(phase="sharded", part="step", mode=mode,
+                  shards=list(mesh.shape), slots=shard_slots(cfg),
+                  ms_per_step=ms, steps_timed=SHARDED_STEPS,
+                  warmup_steps=SHARDED_WARMUP, kernel_launches=n_launch,
+                  kernel_launches_per_step=n_launch
+                  / (SHARDED_WARMUP + SHARDED_STEPS),
+                  attempts=attempts, tries=tries, k=slot_count(cfg, mode),
+                  survivor_cap=cfg.survivor_cap, num_risks=int(out.num_risks),
+                  alerts=int(out.alerts.count.sum()),
+                  alerts_per_shard_max=int(out.alerts.count.max()),
+                  max_risk=float(out.max_risk), worst_overflow=worst_of,
+                  worst_alert_overflow=worst_ao, dropped=dropped,
+                  num_alive=alive, seconds=time.perf_counter() - t_part,
+                  card=smi))
+
+        # (c) the kernel on the shard with the most halo mirrors
+        ext, _ = _halo_extend(states, cfg, mesh, _default_walls(cfg, mesh),
+                              mark=True)
+        lists = [build_cell_list(e, cfg) for e in ext]
+        mirrors = [int((cl.alive & ~cl.own).sum()) for cl in lists]
+        s = max(range(len(lists)), key=lambda i: mirrors[i])
+        cl = lists[s]
+        k = slot_count(cfg, mode)
+        got, want = fused_topk(cl, cfg, mode), fused_topk_plain(cl, cfg,
+                                                               mode)
+        torch.cuda.synchronize()
+        res = compare_slots(got, want, k, torch)
+        err[mode] = max(err[mode], res["max_abs_err"])
+        b = detect_bound(cl, cfg, mode, got, torch)
+        kernel[mode] = dict(
+            ms=median_ms(lambda: fused_topk(cl, cfg, mode), torch),
+            plain_ms=median_ms(lambda: fused_topk_plain(cl, cfg, mode),
+                               torch, repeats=3),
+            bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+        emit(dict(phase="sharded", part="kernel_vs_plain", mode=mode,
+                  shard=list(mesh.coords(s)), n=cl.n,
+                  owned=int(cl.own.sum()), mirrors=mirrors[s], k=k, **res,
+                  ms=kernel[mode]["ms"], plain_ms=kernel[mode]["plain_ms"],
+                  kernel_bound=b, card=smi))
+
+    # ---- (b) against the single-device fused step ----
+    for det_mode, cfg in adopted.items():
+        t_part = time.perf_counter()
+        line = sharded_vs_single(f"100k_2d_{det_mode}_8x2", cfg, fleet, smi,
+                                 torch, dev)
+        emit(dict(line, seconds=time.perf_counter() - t_part))
+
+    # ---- (d) the sharded scenario step, the 20k road fleet, 4x2 ----
+    base, tmap = scenario_setup()
+    roads, _ = build_road_table(tmap, device=dev)
+    cities = build_city_table(tmap, device=dev)
+    cfg = base.replace(
+        num_objects=SCENARIO_SMALL, sim=SimConfig(accel_change_prob=0.0),
+        alerts=dataclasses.replace(base.alerts, max_scene_alerts=1 << 16,
+                                   max_alerts_per_object=SHARDED_ROAD_K),
+        shard=ShardConfig(num_shards=4, num_shards_y=2, halo_capacity=1024,
+                          migrate_capacity=256))
+    fleet_r, scen0 = road_fleet(cfg, roads, 103, torch, dev)
+    mesh = make_mesh(cfg, device=dev)
+    names = [f.name for f in dataclasses.fields(ScenarioState)]
+    states, extras = distribute_state(fleet_r, cfg, mesh, extra={
+        f: getattr(scen0, f) for f in names})
+    scens = tuple(ScenarioState(**x) for x in extras)
+    step = make_sharded_scenario_step(cfg, mesh, roads, cities,
+                                      backend="fused")
+    one = make_scenario_step(single_shard(cfg, 1 << 16), roads, cities,
+                             backend="fused", device=dev)
+    gens = shard_generators(mesh, 3)
+    g1 = torch.Generator(device=dev).manual_seed(3)
+    st1, sc1 = fleet_r, scen0
+    fused_topk.launches = 0
+    for _ in range(SHARDED_ROAD_STEPS):
+        states, scens, out, drop = step(states, scens, gens)
+        if int(out.num_alive) != SCENARIO_SMALL or int(drop.sum()):
+            raise AssertionError(f"sharded road: num_alive "
+                                 f"{int(out.num_alive)}, dropped "
+                                 f"{int(drop.sum())}")
+    torch.cuda.synchronize()
+    n_road = fused_topk.launches
+    launches["hits"] += n_road
+    for _ in range(SHARDED_ROAD_STEPS):
+        st1, sc1, o1 = one(st1, sc1, g1)
+    host = conserved("sharded road", states, SCENARIO_SMALL, torch)
+    hsc = collect_state(scens)
+    rows = by_oid(host, torch)[st1.oid.long()]
+    same_road = bool(torch.equal(hsc.road[rows], sc1.road)
+                     and torch.equal(hsc.road[rows], scen0.road))
+    same_mode = bool(torch.equal(hsc.mode[rows], scen0.mode))
+    pos_diff = float((host.pos[rows] - st1.pos).abs().max())
+    walls_x = torch.tensor([2500.0, 5000.0, 7500.0], device=dev)
+    on_walls = int((fleet_r.pos[:, 0:1] == walls_x).any(dim=1).sum())
+    pairs_equal = set(unordered(out.alerts)) == set(unordered(o1.alerts))
+    line = dict(phase="sharded", part="scenario_road", fleet="20k_2d_road",
+                shards=[4, 2], steps=SHARDED_ROAD_STEPS, k=SHARDED_ROAD_K,
+                kernel_launches=n_road, num_risks=int(out.num_risks),
+                num_risks_single=int(o1.num_risks),
+                alert_overflow=int(out.alert_overflow),
+                alert_overflow_single=int(o1.alert_overflow),
+                pairs=len(unordered(out.alerts)), pairs_equal=pairs_equal,
+                road_kept=same_road, mode_kept=same_mode,
+                max_pos_diff=pos_diff, objects_on_x_walls=on_walls,
+                migrated=int((host.oid != collect_state(distribute_state(
+                    fleet_r, cfg, mesh)).oid).sum()), card=smi)
+    emit(line)
+    if n_road != SHARDED_ROAD_STEPS * mesh.size or not (
+            same_road and same_mode and pairs_equal and pos_diff == 0.0
+            and line["num_risks"] == line["num_risks_single"]
+            and line["alert_overflow"] == 0 and line["migrated"] > 0):
+        raise AssertionError(f"sharded road: {line}")
+
+    # ---- (e) a 2x2x2 mesh in a 3D world: steps, ingest, detect ----
+    cfg = tt.SystemConfig(
+        num_objects=SHARDED_3D_N, world=WorldConfig(hi=(4000.0, 4000.0,
+                                                        800.0)),
+        grid=GridConfig(cell_size=100.0, cell_capacity=64),
+        sim=SimConfig(accel_change_prob=0.0),
+        alerts=AlertConfig(max_scene_alerts=512),
+        shard=ShardConfig(num_shards=2, num_shards_y=2, num_shards_z=2,
+                          slot_headroom=2.0))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    fleet3 = generate_fleet(gen, cfg, "uniform")
+    mesh = make_mesh(cfg, device=dev)
+    step = make_sharded_step(cfg, mesh, backend="fused")
+    states, gens = distribute_state(fleet3, cfg, mesh), \
+        shard_generators(mesh, 4)
+    fused_topk.launches = 0
+    drops = 0
+    for _ in range(SHARDED_3D_STEPS):
+        states, out, drop = step(states, gens)
+        drops += int(drop.sum())
+    torch.cuda.synchronize()
+    n_3d = fused_topk.launches
+    launches[mode_of[cfg.detect.mode]] += n_3d
+    conserved("sharded 3d", states, SHARDED_3D_N, torch)
+    # 1,000 updates: half move existing objects anywhere, half are new
+    b = SHARDED_INGEST
+    new_pos = torch.rand((b, 3), generator=gen, device=dev) \
+        * torch.tensor(cfg.world.hi, device=dev)
+    oid = torch.cat([torch.arange(b // 2, device=dev),
+                     SHARDED_3D_N + torch.arange(b - b // 2, device=dev)])
+    upd = dict(oid=oid.to(torch.int32), pos=new_pos,
+               vel=torch.randn((b, 3), generator=gen, device=dev) * 5.0,
+               acc=torch.zeros((b, 3), device=dev),
+               heading=torch.zeros(b, device=dev),
+               size=torch.full((b,), 2.0, device=dev),
+               otype=torch.zeros(b, dtype=torch.int32, device=dev))
+    states, drop_i = make_sharded_ingest(cfg, mesh)(
+        states, {f: v.cpu().numpy() for f, v in upd.items()})
+    host = conserved("sharded ingest", states, SHARDED_3D_N + b - b // 2,
+                     torch)
+    rows = by_oid(host, torch)[oid.long()]
+    placed = bool(torch.equal(host.pos[rows], new_pos))
+    det, drop_d = make_sharded_detect(cfg, mesh)(states)
+    ref = detect_and_alerts(host, single_shard(cfg, 1 << 16))
+    line = dict(phase="sharded", part="mesh3d", shards=[2, 2, 2],
+                n=SHARDED_3D_N, steps=SHARDED_3D_STEPS, kernel_launches=n_3d,
+                dropped=drops, num_alive=int(out.num_alive),
+                num_risks=int(out.num_risks),
+                alert_overflow=int(out.alert_overflow),
+                ingest_updates=b, ingest_dropped=int(drop_i.sum()),
+                updates_placed=placed,
+                detect_num_risks=int(det.num_risks),
+                detect_num_risks_single=int(ref.num_risks),
+                detect_pairs=len(unordered(det.alerts)),
+                detect_pairs_equal=set(unordered(det.alerts))
+                == set(unordered(ref.alerts)),
+                detect_dropped=int(drop_d.sum()),
+                detect_overflow=int(det.overflow), card=smi)
+    emit(line)
+    if n_3d != SHARDED_3D_STEPS * mesh.size or drops or not placed \
+            or line["ingest_dropped"] or line["detect_dropped"] \
+            or line["num_alive"] != SHARDED_3D_N \
+            or not line["detect_pairs_equal"] \
+            or line["detect_num_risks"] != line["detect_num_risks_single"] \
+            or int(det.alerts.count.max()) >= cfg.alerts.max_scene_alerts:
+        raise AssertionError(f"sharded 3d: {line}")
+
+    # ---- (f) ms/step in turns, and a profile ----
+    cfg = adopted["fast"]
+    variants = {}
+    for name, c in (("16_shards", cfg),
+                    ("1_shard", cfg.replace(shard=ShardConfig(
+                        halo_capacity=1024, migrate_capacity=256)))):
+        mesh = make_mesh(c, device=dev)
+        fn = make_sharded_step(c, mesh, backend="fused")
+        variants[name] = [fn, distribute_state(fleet, c, mesh),
+                          shard_generators(mesh, 5)]
+    single = tt.make_step(single_shard(cfg, cfg.alerts.max_scene_alerts),
+                          backend="fused", device=dev)
+    variants["single_device"] = [
+        lambda st, g: single(st, g) + (None,), fleet,
+        torch.Generator(device=dev).manual_seed(5)]
+
+    def advance(v):
+        v[1], _, _ = v[0](v[1], v[2])
+
+    times = {name: [] for name in variants}
+    for r in range(SHARDED_ROUNDS):
+        for name, v in variants.items():
+            if r == 0:
+                advance(v)
+            events = []
+            for _ in range(SHARDED_TURN):
+                a = torch.cuda.Event(enable_timing=True)
+                b_ = torch.cuda.Event(enable_timing=True)
+                a.record()
+                advance(v)
+                b_.record()
+                events.append((a, b_))
+            torch.cuda.synchronize()
+            times[name].append(statistics.median(
+                a.elapsed_time(b_) for a, b_ in events))
+    profiles = {name: device_profile(lambda v=v: advance(v),
+                                     SCENARIO_PROFILE_STEPS, torch)
+                for name, v in variants.items() if name != "1_shard"}
+    emit(dict(phase="sharded", part="timing", config="100k_2d_fast",
+              k=cfg.alerts.max_alerts_per_object, rounds=SHARDED_ROUNDS,
+              steps_per_turn=SHARDED_TURN, ms_per_step=times,
+              median_ms_per_step={k: statistics.median(v)
+                                  for k, v in times.items()},
+              profile=profiles, card=smi))
+    return dict(launches=launches, max_abs_err=err, kernel=kernel)
 
 
 def main() -> None:
@@ -2201,6 +2695,10 @@ def main() -> None:
     scenario = scenario_phase(smi, torch, dev)
     scenario_launches = scenario["launches"]
 
+    # ---- sharded: the sharded step, 16 shards on the card ----
+    sharded = sharded_phase(smi, torch, dev)
+    sharded_launches = sharded["launches"]
+
     # ---- xla_path: the reference-shaped step ----
     cfg1k_p = tt.SystemConfig(num_objects=1000,
                               detect=DetectionConfig(mode="precise"))
@@ -2395,13 +2893,16 @@ def main() -> None:
                     replaces="tpu_collide/kernels/fused_detect.py:144",
                     launches=(launches[mode] + scene_launches[mode]
                               + service_launches[mode]
-                              + scenario_launches[mode]),
+                              + scenario_launches[mode]
+                              + sharded_launches[mode]),
                     launches_by_path=dict(main_path=launches[mode],
                                           scene=scene_launches[mode],
                                           service=service_launches[mode],
-                                          scenario=scenario_launches[mode]),
+                                          scenario=scenario_launches[mode],
+                                          sharded=sharded_launches[mode]),
                     max_abs_err=max(err[mode],
-                                    scenario["max_abs_err"][mode]),
+                                    scenario["max_abs_err"][mode],
+                                    sharded["max_abs_err"][mode]),
                     ms=kernel_ms[cfg_name][0],
                     plain_ms=kernel_ms[cfg_name][1],
                     bound_ms=bounds[cfg_name]["bound_ms"],

@@ -632,12 +632,12 @@ def test_service_against_jax():
 # ---- sharding is refused ----------------------------------------------------
 
 def test_sharded_config_is_refused():
-    """The port has no sharded step: a config with more than one shard, and
-    the --shards flags, raise instead of serving one shard."""
+    """The port's node has no ShardedScene: a config with more than one
+    shard, and the --shards flags, raise instead of serving one shard."""
     from tpu_collide_torch.system import main
 
     cfg = small_cfg().replace(shard=ShardConfig(num_shards=2))
-    with pytest.raises(NotImplementedError, match="Queue A items 7-8"):
+    with pytest.raises(NotImplementedError, match="Queue A item 3"):
         CollisionSystem(cfg, device="cpu")
     for flag in ("--shards", "--shards-y", "--shards-z"):
         with pytest.raises(NotImplementedError, match="ShardedScene"):

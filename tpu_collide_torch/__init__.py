@@ -6,10 +6,12 @@ stencil gather, 4-stage detection, alert top-k; `make_step`'s default, with
 narrow phase kernel, refine tail), burst stepping, trajectory prediction
 (detect/predict.py, kernels/refine.fused_predict), the capacity tuners
 (kernels/tune.py) and the block co-sort (kernels/block_sort.py), with the
-kernels written in CUDA C++ for Hopper (csrc/); the serving surface
-(api.Scene) and the service node (system.py: runtime, REST routes, stdlib
-HTTP server; `python -m tpu_collide_torch.system`). Entry points run on the
-CUDA card unless given device='cpu'. The JAX package stays the reference
+kernels written in CUDA C++ for Hopper (csrc/); the device scenario modes
+(sim/scenario.py); the sharded step (shard/: a mesh of shards in one
+process, migration and halo exchange, the fused kernel per shard); the
+serving surface (api.Scene) and the service node (system.py: runtime, REST
+routes, stdlib HTTP server; `python -m tpu_collide_torch.system`). Entry
+points run on the CUDA card unless given device='cpu'. The JAX package stays the reference
 the port is checked against; this package imports torch and never jax.
 """
 from tpu_collide_torch.core.config import (SystemConfig, WorldConfig,

@@ -113,8 +113,9 @@ class SimConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ShardConfig:
-    """Spatial sharding settings (carried for config round trips; the port
-    does not shard yet)."""
+    """Spatial sharding settings: the mesh of shard/step.make_mesh (x slabs,
+    (x, y) tiles or (x, y, z) boxes), the halo band and the send buffers'
+    capacities, the per-shard slot headroom."""
     num_shards: int = 1
     axis_name: str = "shard"
     halo_width: float = 100.0

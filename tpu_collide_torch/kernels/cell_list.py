@@ -45,7 +45,9 @@ class CellList:
     """The fleet sorted by cell.
 
     fields:     [N, NF] f32 in FIELD_NAMES order, one row per sorted object
-    oid:        [N] int32 object id of each sorted object
+    oid:        [N] int32 object id of each sorted object, as the state
+                holds it: a halo mirror's is marked -(oid + 2)
+                (shard/halo.extend_with_halo); `oid_decoded` undoes the mark
     cell:       [N] int32 flat cell id of each sorted object (num_cells for
                 dead objects, which sort last)
     cell_start: [num_cells + 1] int32 sorted index where each cell begins
@@ -76,6 +78,23 @@ class CellList:
     def alive(self) -> torch.Tensor:
         """[N] bool per sorted object."""
         return self.cell < self.num_cells
+
+    @property
+    def own(self) -> torch.Tensor:
+        """[N] bool: alive rows that are not halo mirrors, the rows that
+        emit alerts and count risks. Without a halo it equals `alive`."""
+        return self.alive & (self.oid >= 0)
+
+    @property
+    def oid_decoded(self) -> torch.Tensor:
+        """[N] int32 object id of each sorted object, halo marks undone."""
+        return decode_oid(self.oid)
+
+
+def decode_oid(oid: torch.Tensor) -> torch.Tensor:
+    """The object id behind a halo mark: -(oid + 2) -> oid. Other ids,
+    -1 (no object) included, stay as they are."""
+    return torch.where(oid <= -2, -oid - 2, oid)
 
 
 def build_cell_list(state: ObjectState, cfg: SystemConfig,

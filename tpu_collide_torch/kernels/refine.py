@@ -41,8 +41,8 @@ from tpu_collide_torch.detect.predict import (class_advance,
                                               predict_offsets,
                                               sub_window_config)
 from tpu_collide_torch.kernels.cell_list import (CellList, FI,
-                                                 build_cell_list, flat_cells,
-                                                 stencil_pairs)
+                                                 build_cell_list, decode_oid,
+                                                 flat_cells, stencil_pairs)
 from tpu_collide_torch.kernels.fused_detect import (KEY_NONE, fused_topk,
                                                     predict_topk)
 
@@ -64,8 +64,8 @@ class RefinedPairs:
     rel_speed: torch.Tensor  # [P] f32
     col_pos: torch.Tensor    # [P, 3] f32
     priority: torch.Tensor   # [P] int32
-    own_oid: torch.Tensor    # [P] int32
-    cand_oid: torch.Tensor   # [P] int32
+    own_oid: torch.Tensor    # [P] int32, halo marks undone
+    cand_oid: torch.Tensor   # [P] int32, halo marks undone
 
 
 def refine_pairs(cl: CellList, own_idx: torch.Tensor, cand_idx: torch.Tensor,
@@ -82,7 +82,10 @@ def refine_pairs(cl: CellList, own_idx: torch.Tensor, cand_idx: torch.Tensor,
 
 def refine_rows(fo, fc, oid_o, oid_c, alive_o, alive_c, cfg: SystemConfig,
                 mode: str) -> RefinedPairs:
-    """Stages 1-4 on gathered [P, NF] records of each pair's two sides."""
+    """Stages 1-4 on gathered [P, NF] records of each pair's two sides.
+    oid_o / oid_c are the cell list's oids: a pair's identity is taken on
+    them as they are (an object and a halo mirror stay distinct), the
+    reported ids have the halo marks undone."""
     det = cfg.detect
     pos_o, pos_c = fo[:, 0:3], fc[:, 0:3]
     vel_o, vel_c = fo[:, 3:6], fc[:, 3:6]
@@ -136,7 +139,7 @@ def refine_rows(fo, fc, oid_o, oid_c, alive_o, alive_c, cfg: SystemConfig,
         distance=torch.where(hit, d_hit, inf),
         rel_speed=torch.where(hit, rel_speed, zero),
         col_pos=col_pos, priority=compute_priority(risk, ttc, cfg),
-        own_oid=oid_o, cand_oid=oid_c)
+        own_oid=decode_oid(oid_o), cand_oid=decode_oid(oid_c))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,8 +153,7 @@ class FusedSceneResult:
                                   # caps; 0 means the alert list is complete
 
 
-def _alert_batch(valid, vehicle_oid, ref: RefinedPairs,
-                 size: int) -> AlertBatch:
+def _alert_batch(valid, ref: RefinedPairs, size: int) -> AlertBatch:
     """Alert buffer of `size` entries from the first valid.numel() selected
     pairs (the rest is invalid padding)."""
     pad = size - valid.numel()
@@ -165,7 +167,7 @@ def _alert_batch(valid, vehicle_oid, ref: RefinedPairs,
         return x
 
     return AlertBatch(
-        vehicle_oid=col(vehicle_oid.to(torch.int32), -1),
+        vehicle_oid=col(ref.own_oid.to(torch.int32), -1),
         other_oid=col(ref.cand_oid.to(torch.int32), -1),
         risk=col(ref.risk, 0.0),
         ttc=col(ref.ttc, float("inf")),
@@ -179,11 +181,11 @@ def _alert_batch(valid, vehicle_oid, ref: RefinedPairs,
 
 
 def _hot_topup(cl: CellList, cfg: SystemConfig, qual: torch.Tensor, k: int):
-    """Exact top-up for hot rows (own rows with more qualifying pairs than
-    the k slots). The up to `hot_topup` hottest rows get their whole stencil
-    neighbourhood (the runs the kernel walks) recomputed; their pairs replace
-    their slots in the scene selection. Rows beyond the cap stay counted in
-    alert_overflow.
+    """Exact top-up for hot rows (own rows, never halo mirrors, with more
+    qualifying pairs than the k slots). The up to `hot_topup` hottest rows
+    get their whole stencil neighbourhood (the runs the kernel walks)
+    recomputed; their pairs replace their slots in the scene selection.
+    Rows beyond the cap stay counted in alert_overflow.
 
     Returns (covered [m] bool, hkey [P] f32 scene key (KEY_NONE where not
     qualifying), hown [P], hcand [P] int64 sorted indices). Waits for the
@@ -191,7 +193,7 @@ def _hot_topup(cl: CellList, cfg: SystemConfig, qual: torch.Tensor, k: int):
     pair count when one is."""
     H = cfg.detect.hot_topup
     m = qual.numel()
-    hot = cl.alive & (qual > k)
+    hot = cl.own & (qual > k)
     hot_rank = torch.where(hot, qual.to(torch.float32),
                            torch.full_like(qual, -1, dtype=torch.float32))
     top_q, hot_rows = topk_low_index(hot_rank, min(H, m))
@@ -217,11 +219,15 @@ def fused_scene_fast(cl: CellList, cfg: SystemConfig,
 
     Each object's qualifying pairs enter from its own side, so both
     directions of a pair may appear. `topk` is the slot function
-    (fused_topk; fused_topk_plain to compare the two on one device)."""
+    (fused_topk; fused_topk_plain to compare the two on one device).
+
+    Only own rows (`cl.own`) emit alerts and count in num_risks and
+    alert_overflow; num_checked and max_risk take every row, halo mirrors
+    included, as in the JAX package."""
     s = topk(cl, cfg, mode="hits")
     keys, idx = s.keys, s.idx
     m, k = keys.shape
-    own = cl.alive
+    own = cl.own
     occupied = idx >= 0
     if cfg.detect.hot_topup > 0:
         covered, hkey, hown, hcand = _hot_topup(cl, cfg, s.qual, k)
@@ -245,8 +251,7 @@ def fused_scene_fast(cl: CellList, cfg: SystemConfig,
         cand_idx = torch.where(is_slot, cand_idx, hcand[hj])
     ref = refine_pairs(cl, own_slot, cand_idx, cfg, mode="fast")
     valid = valid & ref.hit & (ref.risk >= cfg.alerts.risk_low)
-    alerts = _alert_batch(valid, cl.oid[own_slot], ref,
-                          cfg.alerts.max_scene_alerts)
+    alerts = _alert_batch(valid, ref, cfg.alerts.max_scene_alerts)
 
     slot_risk = torch.where(occupied, decode_risk(keys),
                             torch.zeros_like(keys))
@@ -266,11 +271,11 @@ def fused_scene_precise(cl: CellList, cfg: SystemConfig,
                         topk=fused_topk) -> FusedSceneResult:
     """Precise mode: kernel survivor slots -> compaction to survivor_cap
     records -> sampled constant-acceleration sweep and risk -> scene
-    top-A."""
+    top-A. Only own rows' survivors are kept (see fused_scene_fast)."""
     s = topk(cl, cfg, mode="survivors")
     keys, idx = s.keys, s.idx
     m, k = keys.shape
-    own = cl.alive
+    own = cl.own
     occupied = (idx >= 0) & own[:, None]
     sel = torch.where(occupied, keys, torch.full_like(keys, KEY_NONE))
     cap = min(cfg.survivor_cap, m * k)
@@ -301,7 +306,7 @@ def fused_scene_precise(cl: CellList, cfg: SystemConfig,
         rank, min(cfg.alerts.max_scene_alerts, cap))
     ref_a = RefinedPairs(**{f.name: getattr(ref, f.name)[sel_i]
                             for f in dataclasses.fields(RefinedPairs)})
-    alerts = _alert_batch(top_rank >= 0.0, cl.oid[own_slot][sel_i], ref_a,
+    alerts = _alert_batch(top_rank >= 0.0, ref_a,
                           cfg.alerts.max_scene_alerts)
 
     n_surv = occupied.sum(dtype=torch.int32)
@@ -499,6 +504,8 @@ def fused_predict_rows(state, cls, cfg: SystemConfig, horizon: float = 10.0,
     sub_steps = sub_window_config(det, sub_window).num_time_steps
     cl = build_cell_list(state, cfg, cls=cls)
     m = cl.n
+    # alive, not cl.own: no halo reaches the prediction's cell list until
+    # the sharded prediction is ported
     own = cl.alive
     s = predict_topk(cl, cfg, offs, k_slots, sub_steps)
 

@@ -45,8 +45,9 @@ from tpu_collide_torch.runtime.storage import (InMemoryStorage, StorageFactory,
 
 logger = get_logger(__name__)
 
-_NO_SHARDS = ("the PyTorch port has no sharded step or ShardedScene yet "
-              "(ROADMAP Queue A items 7-8): run with one shard")
+_NO_SHARDS = ("the PyTorch port's service node has no ShardedScene yet "
+              "(ROADMAP Queue A item 3): run with one shard, or drive "
+              "tpu_collide_torch.shard.make_sharded_step directly")
 
 
 class CollisionSystem:
@@ -277,7 +278,7 @@ def main(argv=None) -> None:
                     help="step engine: the exact reference-shaped "
                          "pipeline or the fused CUDA kernel (big fleets)")
     ap.add_argument("--shards", type=int, default=None,
-                    help="refused: the port has no sharded step yet")
+                    help="refused until the port has a ShardedScene")
     ap.add_argument("--shards-y", type=int, default=None,
                     help="refused, as --shards")
     ap.add_argument("--shards-z", type=int, default=None,
