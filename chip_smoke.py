@@ -110,6 +110,28 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    detection); ms/step of the 16-shard step, a one-shard
                    mesh and the single-device step in turns, and
                    torch.profiler's launches and idle share
+  sharded_serving  balance, sharded prediction and ShardedScene
+                   (sharded_serving_phase) at the sharded phase's 100k
+                   8x2 deployment: LoadBalancer on a 100k city-skew fleet
+                   (occupancy and imbalance under equal and quantile walls,
+                   conservation; 3 fused steps at the deployment's halo
+                   under both walls, its drops reported; 3 under the new
+                   walls at a shard-sized halo, which drop nothing, and
+                   their alert_overflow beside the single device's);
+                   make_sharded_predict(backend="fused") on the uniform
+                   fleet after 4 steps with migrating trajectory rings
+                   (one predict launch per shard a call, CUDA-event ms, a
+                   profile) against the single-device fused_predict,
+                   equal where both certify; the xla backend against the
+                   fused one at 20k; the rebalanced city-skew fleet with
+                   hops for its narrowest slab; ShardedScene step,
+                   step_pipelined, step_burst, detect, record_trajectories
+                   and predict (host ms per call, certificates), precise
+                   mode at the adopted survivor_k / cap, a checkpoint
+                   restored bit for bit and two async saves; the sharded
+                   CollisionSystem over HTTP (reports, POST /step, /detect,
+                   GET /alerts, every answer 200) and python -m
+                   tpu_collide_torch.system --shards 4 --shards-y 2
   xla_path         make_step(cfg, backend="xla") at bench.py's XLA rows
                    (1k precise and 1k fast, city skew) and
                    make_step(cfg100k, chunk_size=8192) on a uniform 100k
@@ -130,9 +152,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    against torch.sort plus gathers; the launches per sort
 
 The line before the last lists the kernels with their launches (the
-detection kernels' on main_path, scene, service, scenario and sharded, the
-predict
-kernel's on predict_path and scene, the co-sort's on cosort_vs_plain; the
+detection kernels' on main_path, scene, service, scenario, sharded and
+sharded_serving, the predict kernel's on predict_path, scene and
+sharded_serving, the co-sort's on cosort_vs_plain; the
 sum, and each path's in launches_by_path), their times and their bounds;
 the last line
 is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -2325,7 +2347,627 @@ def sharded_phase(smi, torch, dev) -> dict:
               median_ms_per_step={k: statistics.median(v)
                                   for k, v in times.items()},
               profile=profiles, card=smi))
-    return dict(launches=launches, max_abs_err=err, kernel=kernel)
+    return dict(launches=launches, max_abs_err=err, kernel=kernel,
+                adopted=adopted)
+
+
+# ---- sharded serving: balance, sharded prediction, ShardedScene ------------
+
+# bench.py:400-450's prediction settings (horizon 10 s at 0.5 s, merge_k 32,
+# a 1 s sub-window); the predict calls timed with CUDA events; the reduced
+# fleet of the xla backend's call; the ShardedScene's calls of each kind;
+# the reports posted to the sharded node and its POST /step requests
+SERVING_HORIZON, SERVING_STEP = 10.0, 0.5
+SERVING_PREDICTS, SERVING_XLA_N = 3, 20_000
+SERVING_STEPS, SERVING_BURST, SERVING_SCENE_PREDICTS = 5, 4, 3
+SERVING_REPORTS, SERVING_HTTP_STEPS = 100, 5
+
+
+def launch_counts() -> tuple:
+    """(detection, predict) kernel launches counted so far."""
+    from tpu_collide_torch.kernels.fused_detect import fused_topk, predict_topk
+    return fused_topk.launches, predict_topk.launches
+
+
+def history_steps(cfg, mesh, states, walls, n, torch):
+    """n fused sharded steps with the trajectory rings (distribute_history
+    of an empty global history, then one record after each step, as
+    ShardedScene.record_trajectories does): (states, histories, worst
+    overflow, worst alert_overflow, dropped, the least num_alive)."""
+    from tpu_collide_torch.detect.predict import (empty_history,
+                                                  update_history)
+    from tpu_collide_torch.shard import (collect_state, distribute_history,
+                                         make_sharded_step, shard_generators)
+    host = collect_state(states)
+    hists = distribute_history(empty_history(host.n, device=host.device),
+                               cfg, mesh, host, *walls)
+    step = make_sharded_step(cfg, mesh, backend="fused", with_history=True)
+    gens = shard_generators(mesh, 6)
+    worst = [0, 0, 0, cfg.num_objects]
+    for i in range(n):
+        states, hists, out, drop = step(states, hists, gens, *walls)
+        hists = tuple(update_history(h, st, (i + 1) * cfg.sim.dt)
+                      for h, st in zip(hists, states))
+        worst = [max(worst[0], int(out.overflow)),
+                 max(worst[1], int(out.alert_overflow)),
+                 worst[2] + int(drop.sum()),
+                 min(worst[3], int(out.num_alive))]
+    return (states, hists, *worst)
+
+
+def single_device_alert_overflow(cfg, fleet, n, torch, dev) -> int:
+    """The worst alert_overflow of n single-device fused steps of `fleet`
+    (make_step(cfg, backend="fused")). Its launches are a comparison's and
+    stay out of the path's count."""
+    import tpu_collide_torch as tt
+    step = tt.make_step(cfg, backend="fused", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    worst = 0
+    for _ in range(n):
+        fleet, out = step(fleet, gen)
+        worst = max(worst, int(out.alert_overflow))
+    return worst
+
+
+def predicted_pairs(rows, row_oid, torch) -> dict:
+    """{(own oid, other oid): (risk, ttc, dist)} of the valid entries of
+    merged predict rows (other, valid, risk, ttc, dist) whose row i is
+    object row_oid[i]."""
+    other, valid, risk, ttc, dist = rows
+    i, j = torch.nonzero(valid, as_tuple=True)
+    cols = to_host_lists([row_oid[i], other[i, j], risk[i, j], ttc[i, j],
+                          dist[i, j]])
+    return {(a, b): (r, t, d) for a, b, r, t, d in zip(*cols)}
+
+
+def to_host_lists(tensors) -> list:
+    from tpu_collide_torch.core.device import to_host
+    return [a.tolist() for a in to_host(tensors)]
+
+
+def pair_diff(got, want) -> dict:
+    """How two predicted pair maps differ: pairs in one only (with their
+    values, the first 10) and the largest value difference on the common
+    pairs."""
+    common = set(got) & set(want)
+    d = max((abs(x - y) for k in common for x, y in zip(got[k], want[k])
+             if x != y), default=0.0)
+    only = lambda a, b: [dict(pair=k, values=a[k])
+                         for k in sorted(set(a) - set(b))[:10]]
+    return dict(pairs=len(want), common=len(common),
+                only_sharded=len(set(got) - set(want)),
+                only_single=len(set(want) - set(got)),
+                max_abs_diff=d, first_only_sharded=only(got, want),
+                first_only_single=only(want, got))
+
+
+def sharded_vs_single_predict(name, cfg, mesh, states, hists, walls, hops,
+                              halo_capacity, smi, torch) -> dict:
+    """make_sharded_predict(backend="fused") on the mesh, SERVING_PREDICTS
+    calls timed with CUDA events after a warm-up, against the
+    single-device fused_predict (k_slots 8) on the collected fleet in oid
+    order (oid == row, as fused_predict's scatter assumes), joined on
+    row_oid. Equal pair sets and values within ORACLE_TOL are required
+    where both sides certify (overflow, slot_oflow and dropped 0);
+    otherwise the counters and the differing pairs are reported."""
+    from tpu_collide_torch.kernels.refine import fused_predict
+    from tpu_collide_torch.shard import collect_state, make_sharded_predict
+    pfn = make_sharded_predict(cfg, mesh, horizon=SERVING_HORIZON,
+                               step=SERVING_STEP, backend="fused",
+                               hops=hops, halo_capacity=halo_capacity)
+    run = lambda: pfn(states, hists, *walls)
+    d_start, p_start = launch_counts()
+    run()
+    d0, p0 = launch_counts()
+    events, res = [], None
+    for _ in range(SERVING_PREDICTS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        res = run()
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    d1, p1 = launch_counts()
+    ms = [a.elapsed_time(b) for a, b in events]
+    cat = lambda parts: torch.cat(list(parts))
+    got = predicted_pairs([cat(c) for c in res[:5]], cat(res[5]), torch)
+    dropped, oflow = int(res[6].sum()), int(res[7].sum())
+    # the single-device reference, on the fleet in oid order
+    host, hh = collect_state(states), collect_state(hists)
+    alive = torch.nonzero(host.alive).flatten()
+    rows = alive[torch.argsort(host.oid[alive])]
+    fleet = host.replace(**{f: getattr(host, f)[rows]
+                            for f in ("pos", "vel", "acc", "heading", "size",
+                                      "otype", "alive", "oid")})
+    hist = type(hh)(**{f: getattr(hh, f)[rows]
+                       for f in ("pos", "t", "count", "head")})
+    if not bool((fleet.oid == torch.arange(
+            fleet.n, dtype=torch.int32, device=fleet.oid.device)).all()):
+        raise AssertionError(f"{name}: the fleet's oids are not 0 .. n-1")
+    ref = fused_predict(fleet, hist, cfg, horizon=SERVING_HORIZON,
+                        step=SERVING_STEP, k_slots=8)
+    want = predicted_pairs(ref[:5], fleet.oid, torch)
+    single = dict(overflow=int(ref[5]), slot_oflow=int(ref[6]),
+                  slot_trunc=int(ref[7]))
+    diff = pair_diff(got, want)
+    both_certify = dropped == oflow == single["overflow"] \
+        == single["slot_oflow"] == 0
+    line = dict(fleet=name, hops=hops, halo_capacity=halo_capacity,
+                ms=ms, median_ms=statistics.median(ms),
+                predict_launches=p1 - p_start,
+                predict_launches_per_call=(p1 - p0) / SERVING_PREDICTS,
+                detection_launches=d1 - d_start, shards=mesh.size,
+                sharded=dict(dropped=dropped, overflow_plus_slot_oflow=oflow,
+                             risks=len(got)),
+                single=single, both_certify=both_certify,
+                equal=diff["only_sharded"] == diff["only_single"] == 0
+                and diff["max_abs_diff"] <= ORACLE_TOL, **diff)
+    if p1 - p0 != SERVING_PREDICTS * mesh.size or d1 != d_start:
+        raise AssertionError(f"{name}: {p1 - p0} predict launches in "
+                             f"{SERVING_PREDICTS} calls on {mesh.size} "
+                             f"shards")
+    if both_certify and not line["equal"]:
+        raise AssertionError(f"{name}: sharded and single-device "
+                             f"predictions differ: {line}")
+    return line, run
+
+
+def predict_kernel_on_shard(cfg, mesh, states, hists, smi, torch) -> dict:
+    """The predict kernel against its plain version on the cell list that
+    make_sharded_predict(backend="fused") builds for the shard with the
+    most halo mirrors (owned rows, marked mirrors of class 0, the band
+    predict_reach wide), all offsets at k 8, bit for bit. The launches made
+    here are left out of the path's count. Returns the line's numbers."""
+    from tpu_collide_torch.detect.predict import (classify_trajectories,
+                                                  predict_offsets,
+                                                  sub_window_config)
+    from tpu_collide_torch.kernels.cell_list import build_cell_list
+    from tpu_collide_torch.kernels.fused_detect import (predict_topk,
+                                                        predict_topk_plain)
+    from tpu_collide_torch.shard import predict_band
+    from tpu_collide_torch.shard.step import _default_walls, _halo_extend
+    before = predict_topk.launches
+    reach, hops, cap = predict_band(cfg, SERVING_HORIZON, SERVING_STEP)
+    ext, _ = _halo_extend(states, cfg, mesh, _default_walls(cfg, mesh),
+                          True, width=reach, capacity=cap, hops=hops)
+    mirrors = [int((e.alive & (e.oid < 0)).sum()) for e in ext]
+    s = max(range(len(ext)), key=lambda i: mirrors[i])
+    cls = torch.cat([classify_trajectories(hists[s]),
+                     torch.zeros(ext[s].n - states[s].n, dtype=torch.int32,
+                                 device=ext[s].device)])
+    cl = build_cell_list(ext[s], cfg, cls=cls)
+    offs = torch.tensor(predict_offsets(SERVING_HORIZON, SERVING_STEP),
+                        dtype=torch.float32, device=cl.fields.device)
+    sub = sub_window_config(cfg.detect, 1.0).num_time_steps
+    pk = lambda: predict_topk(cl, cfg, offs, 8, sub)
+    pp = lambda: predict_topk_plain(cl, cfg, offs, 8, sub)
+    got, want = pk(), pp()
+    torch.cuda.synchronize()
+    res = compare_pred_slots(got, want, 8, torch)
+    if not res["bit_equal"]:
+        raise AssertionError("predict kernel on a halo-extended shard: not "
+                             "bit-equal to its plain version")
+    line = dict(shard=list(mesh.coords(s)), rows=cl.n,
+                owned=int(cl.own.sum()), mirrors=mirrors[s],
+                offsets=offs.numel(), k=8, sub_steps=sub, **res,
+                ms=median_ms(pk, torch),
+                plain_ms=median_ms(pp, torch, repeats=3),
+                kernel_bound=predict_bound(cl, cfg, offs, got, sub, torch))
+    predict_topk.launches = before
+    return line
+
+
+def sharded_serving_phase(smi, torch, dev, adopted) -> dict:
+    """Balance, sharded prediction and ShardedScene on the card, at
+    sharded_config()'s 100k deployment on 8x2 shards: (a) LoadBalancer on
+    a city-skew fleet (rebalance, conservation, 3 fused steps at the
+    deployment's halo under the equal and the new walls, 3 under the new
+    walls at a shard-sized halo with every object kept in the bands); (b) make_sharded_predict(backend="fused") at 100k against
+    the single-device fused_predict, the xla backend at SERVING_XLA_N
+    against the fused one, and the rebalanced city-skew fleet with hops
+    for its narrowest slab; (c) ShardedScene: step, step_pipelined,
+    step_burst, detect, record_trajectories and predict, precise mode at
+    the sharded phase's adopted survivor_k / cap, checkpoints; (d) the
+    sharded service node over HTTP and `python -m tpu_collide_torch.system
+    --shards 4 --shards-y 2`. Emits one line per part; returns the kernels'
+    launches on the path by mode."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from tpu_collide_torch.api import ShardedScene
+    from tpu_collide_torch.kernels.fused_detect import fused_topk, predict_topk
+    from tpu_collide_torch.shard import (LoadBalancer, collect_state,
+                                         distribute_state,
+                                         imbalance, make_mesh,
+                                         make_sharded_predict, predict_hops,
+                                         predict_reach, shard_occupancy,
+                                         shard_slots)
+    from tpu_collide_torch.shard.step import _shard_of
+    from tpu_collide_torch.sim import generate_fleet
+    launches = {"hits": 0, "survivors": 0, "predict": 0}
+    fused_topk.launches = predict_topk.launches = 0
+    cfg_f, cfg_p = adopted["fast"], adopted["precise"]
+    n = cfg_f.num_objects
+    sh = cfg_f.shard
+    d = sh.total_shards
+
+    # ---- (a) balance: the city-skew fleet on 8x2 ----
+    t_part = time.perf_counter()
+    skew = generate_fleet(torch.Generator(device=dev).manual_seed(5), cfg_f,
+                          "city_skew")
+    occ_equal = np.bincount(_shard_of(skew.pos.cpu().numpy(), cfg_f),
+                            minlength=d)
+    # the least headroom (in steps of 0.25) whose slots hold the busiest
+    # equal slab
+    headroom = float(np.ceil(occ_equal.max() / (n / d) * 4.0) / 4.0) + 0.25
+    cfg_s = cfg_f.replace(shard=dataclasses.replace(sh,
+                                                    slot_headroom=headroom))
+    mesh = make_mesh(cfg_s, device=dev)
+    slots = shard_slots(cfg_s)
+    equal = distribute_state(skew, cfg_s, mesh)
+    occ0 = shard_occupancy(equal, cfg_s)
+    bal = LoadBalancer(cfg_s, slots, check_every=1)
+    trigger = bal.should_rebalance(equal)
+    t0 = time.perf_counter()
+    states, bx, by, _ = bal.rebalance(equal, mesh)
+    torch.cuda.synchronize()
+    rebalance_ms = (time.perf_counter() - t0) * 1e3
+    occ1 = shard_occupancy(states, cfg_s)
+    conserved("balance", states, n, torch)
+    widths = dict(x=float((bx[1:] - bx[:-1]).min()),
+                  y=float((by[1:] - by[:-1]).min()))
+    reach = predict_reach(cfg_s, SERVING_HORIZON, SERVING_STEP)
+    narrow = min(widths.values())
+    walls = (bx, by, None)
+    # the deployment's halo of 1,024 on the city cores, under the equal
+    # and under the new walls: its drops are reported beside each other
+    deployment_halo = {}
+    for name, start, w in (("equal_walls", equal, (None, None, None)),
+                           ("quantile_walls", states, walls)):
+        d0, _ = launch_counts()
+        _, _, w_of, w_ao, drops, least = history_steps(cfg_s, mesh, start,
+                                                       w, 3, torch)
+        launches["hits"] += launch_counts()[0] - d0
+        deployment_halo[name] = dict(dropped=drops, worst_overflow=w_of,
+                                     worst_alert_overflow=w_ao,
+                                     least_num_alive=least)
+    # the certificates under the new walls, at a halo as large as a shard
+    # (a band never holds more than its neighbour's slots)
+    cfg_w = cfg_s.replace(shard=dataclasses.replace(cfg_s.shard,
+                                                    halo_capacity=slots))
+    d0, _ = launch_counts()
+    states, hists, w_of, w_ao, drops, least = history_steps(
+        cfg_w, mesh, states, walls, 3, torch)
+    n_launch = launch_counts()[0] - d0
+    launches["hits"] += n_launch
+    conserved("balance, 3 steps", states, n, torch)
+    # the slot shortfall at k 8 belongs to the fleet: the single-device
+    # step of the same fleet (a hot top-up as large as the 16 shards')
+    # has one of the same order
+    one = single_shard(cfg_s, 1 << 20)
+    one = one.replace(detect=dataclasses.replace(
+        one.detect, hot_topup=cfg_s.detect.hot_topup * d))
+    single_ao = single_device_alert_overflow(
+        one, by_oid_state(collect_state(states), torch), 3, torch, dev)
+    line = dict(phase="sharded_serving", part="balance",
+                fleet="100k_2d_cityskew", shards=list(mesh.shape),
+                slot_headroom=headroom, slots=slots,
+                occupancy_equal_walls=occ0.tolist(),
+                imbalance_equal_walls=imbalance(occ0),
+                should_rebalance=trigger, rebalance_host_ms=rebalance_ms,
+                walls_x=bx.tolist(), walls_y=by.tolist(),
+                occupancy_after=occ1.tolist(), imbalance_after=imbalance(occ1),
+                narrowest_slab_m=widths,
+                min_slab_width=bal.min_slab_width(),
+                predict_reach_m=reach,
+                default_hops=[predict_hops(cfg_s, reach, i) for i in (0, 1)],
+                balancer=bal.stats, steps_after=3,
+                deployment_halo=dict(halo_capacity=sh.halo_capacity,
+                                     **deployment_halo),
+                halo_capacity=slots, kernel_launches=n_launch,
+                worst_overflow=w_of, dropped=drops, least_num_alive=least,
+                k=cfg_s.alerts.max_alerts_per_object,
+                worst_alert_overflow=w_ao,
+                single_device_worst_alert_overflow=single_ao,
+                conserved=True, seconds=time.perf_counter() - t_part,
+                card=smi)
+    emit(line)
+    # walls are kept as f32: a slab may read a few mm under the f64 width.
+    # The shard-sized halo must drop nothing; alert_overflow is reported
+    # beside the single device's (the fleet's cores hold more qualifying
+    # pairs an object than k 8, on one device as on 16 shards)
+    if not trigger or imbalance(occ1) >= imbalance(occ0) or least != n \
+            or narrow < bal.min_slab_width() - 1e-2 or n_launch != 3 * d \
+            or drops or w_of:
+        raise AssertionError(f"sharded_serving balance: {line}")
+    skew_run = (cfg_s, mesh, states, hists, walls, narrow, reach, slots)
+    del equal
+
+    # ---- (b) sharded prediction: uniform 100k on equal walls ----
+    t_part = time.perf_counter()
+    uniform = generate_fleet(torch.Generator(device=dev).manual_seed(0),
+                             cfg_f, "uniform")
+    mesh = make_mesh(cfg_f, device=dev)
+    states = distribute_state(uniform, cfg_f, mesh)
+    d0, _ = launch_counts()
+    states, hists, w_of, w_ao, drops, least = history_steps(
+        cfg_f, mesh, states, (None, None, None), 4, torch)
+    n_steps = launch_counts()[0] - d0
+    launches["hits"] += n_steps
+    line, run = sharded_vs_single_predict(
+        "100k_2d_uniform", cfg_f, mesh, states, hists, (None, None, None),
+        None, None, smi, torch)
+    launches["predict"] += line["predict_launches"]
+    _, p0 = launch_counts()
+    profile = device_profile(run, 2, torch)
+    launches["predict"] += launch_counts()[1] - p0
+    emit(dict(phase="sharded_serving", part="predict", **line,
+              steps=dict(n=4, kernel_launches=n_steps, worst_overflow=w_of,
+                         worst_alert_overflow=w_ao, dropped=drops),
+              profile=profile, seconds=time.perf_counter() - t_part,
+              card=smi))
+    if drops or n_steps != 4 * d:
+        raise AssertionError(f"sharded_serving predict set-up: {n_steps} "
+                             f"launches, dropped {drops}")
+    t_part = time.perf_counter()
+    kernel = predict_kernel_on_shard(cfg_f, mesh, states, hists, smi, torch)
+    emit(dict(phase="sharded_serving", part="predict_kernel_vs_plain",
+              fleet="100k_2d_uniform", **kernel,
+              seconds=time.perf_counter() - t_part, card=smi))
+
+    # the xla backend at SERVING_XLA_N against the fused one
+    t_part = time.perf_counter()
+    cfg_x = cfg_f.replace(num_objects=SERVING_XLA_N)
+    mesh_x = make_mesh(cfg_x, device=dev)
+    small = generate_fleet(torch.Generator(device=dev).manual_seed(7),
+                           cfg_x, "uniform")
+    sx = distribute_state(small, cfg_x, mesh_x)
+    d0, _ = launch_counts()
+    sx, hx, _, _, drops_x, _ = history_steps(cfg_x, mesh_x, sx,
+                                             (None, None, None), 4, torch)
+    launches["hits"] += launch_counts()[0] - d0
+    outs = {}
+    for backend in ("xla", "fused"):
+        pfn = make_sharded_predict(cfg_x, mesh_x, horizon=SERVING_HORIZON,
+                                   step=SERVING_STEP, backend=backend)
+        _, p0 = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pfn(sx, hx)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches["predict"] += launch_counts()[1] - p0
+        cat = lambda parts: torch.cat(list(parts))
+        row_oid = cat(res[5]) if backend == "fused" \
+            else cat(s.oid for s in sx)
+        outs[backend] = dict(ms=ms, pairs=predicted_pairs(
+            [cat(c) for c in res[:5]], row_oid, torch),
+            dropped=int(res[-2].sum()), counter=int(res[-1].sum()))
+    diff = pair_diff(outs["fused"]["pairs"], outs["xla"]["pairs"])
+    certify = outs["xla"]["dropped"] == outs["xla"]["counter"] == \
+        outs["fused"]["dropped"] == outs["fused"]["counter"] == 0
+    line = dict(phase="sharded_serving", part="predict_xla_vs_fused",
+                fleet=f"{SERVING_XLA_N}_2d_uniform",
+                shards=list(mesh_x.shape),
+                xla=dict(ms=outs["xla"]["ms"], dropped=outs["xla"]["dropped"],
+                         grid_overflow=outs["xla"]["counter"]),
+                fused=dict(ms=outs["fused"]["ms"],
+                           dropped=outs["fused"]["dropped"],
+                           overflow_plus_slot_oflow=outs["fused"]["counter"]),
+                both_certify=certify, **diff,
+                seconds=time.perf_counter() - t_part, card=smi)
+    emit(line)
+    if certify and (diff["only_sharded"] or diff["only_single"]
+                    or diff["max_abs_diff"] > ORACLE_TOL) or drops_x:
+        raise AssertionError(f"sharded_serving xla vs fused: {line}")
+
+    # the rebalanced city-skew fleet: hops for its narrowest slab, and a
+    # halo buffer as large as a shard, so that no band object drops
+    t_part = time.perf_counter()
+    cfg_s, mesh, states, hists, walls, narrow, reach, slots = skew_run
+    hops = max(1, int(np.ceil(reach / narrow)))
+    line, _ = sharded_vs_single_predict(
+        "100k_2d_cityskew_rebalanced", cfg_s, mesh, states, hists, walls,
+        hops, slots, smi, torch)
+    launches["predict"] += line["predict_launches"]
+    emit(dict(phase="sharded_serving", part="predict_rebalanced", **line,
+              narrowest_slab_m=narrow, predict_reach_m=reach,
+              seconds=time.perf_counter() - t_part, card=smi))
+    del skew_run, states, hists, sx, hx
+
+    # ---- (c) ShardedScene, fast and precise ----
+    t_part = time.perf_counter()
+    SCRATCH.mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="sharded_ckpt_", dir=SCRATCH)
+    d0, p0 = launch_counts()
+    sc = ShardedScene(cfg_f, fleet=uniform, backend="fused",
+                      checkpoint_dir=ckpt_dir, device=dev)
+    calls = {}
+    steps, calls["step"] = timed_calls(sc.step, SERVING_STEPS)
+    piped, calls["step_pipelined"] = timed_calls(sc.step_pipelined,
+                                                 SERVING_STEPS)
+    t0 = time.perf_counter()
+    piped = piped[1:] + [sc.pipeline_drain()]
+    calls["pipeline_drain"] = [(time.perf_counter() - t0) * 1e3]
+    burst, calls[f"step_burst({SERVING_BURST})"] = timed_calls(
+        lambda: sc.step_burst(SERVING_BURST), 1)
+    batch, calls["detect"] = timed_calls(sc.detect, 1)
+    ticks = []
+    for _ in range(4):
+        sc.step()
+        t0 = time.perf_counter()
+        sc.record_trajectories()
+        ticks.append((time.perf_counter() - t0) * 1e3)
+    calls["record_trajectories"] = ticks
+    d1, p1 = launch_counts()
+    preds, calls["predict"] = timed_calls(sc.predict, SERVING_SCENE_PREDICTS)
+    d2, p2 = launch_counts()
+    outs = steps + piped + burst
+    certs = [(int(o.overflow), int(o.alert_overflow)) for o in outs]
+    n_steps = 2 * SERVING_STEPS + SERVING_BURST + 4
+    launches["hits"] += d2 - d0
+    launches["predict"] += p2 - p0
+    line = dict(phase="sharded_serving", part="scene", mode="hits",
+                config="100k_2d_fast_8x2", fleet="100k_2d_uniform",
+                ms_per_call={k: dict(calls=len(v), median=statistics.median(v),
+                                     **call_stats(v)) for k, v in calls.items()},
+                certificates=certs, detection_launches=d1 - d0,
+                fused_steps=n_steps,
+                predict_launches=p2 - p1, last_predict=sc.last_predict,
+                predicted_risks=[len(p) for p in preds],
+                detect_alerts=int(batch[0].count.sum()),
+                step_and_copy_avg_ms=sc.stats()["avg_step_ms"],
+                stats={k: v for k, v in sc.stats().items()
+                       if k not in ("shard_occupancy", "alerts")},
+                alert_stats=sc.alert_manager.get_stats(),
+                seconds=time.perf_counter() - t_part, card=smi)
+    emit(line)
+    # the scene heals no slots: a non-zero alert_overflow is reported
+    if d1 - d0 != n_steps * d or p2 - p1 != SERVING_SCENE_PREDICTS * d \
+            or p1 != p0 or d2 != d1 or any(of for of, _ in certs) \
+            or sc.dropped_total or sc.stats()["num_alive"] != n:
+        raise AssertionError(f"sharded_serving scene: {line}")
+
+    # checkpoints: save, restore, two async saves back to back
+    t_part = time.perf_counter()
+    d0, _ = launch_counts()
+    try:
+        before = by_oid_state(sc.collect(), torch)
+        at = sc.step_count
+        save_ms = timed_calls(sc.save_checkpoint, 1)[1][0]
+        sc.step()
+        restore_ms = timed_calls(sc.restore_checkpoint, 1)[1][0]
+        after = by_oid_state(sc.collect(), torch)
+        restored_equal = states_equal(before, after, torch)
+        async_ms = timed_calls(sc.save_checkpoint_async, 2)[1]
+        t0 = time.perf_counter()
+        sc.ckpt.wait_async()
+        wait_ms = (time.perf_counter() - t0) * 1e3
+        saved = sc.ckpt.stats
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    n_launch = launch_counts()[0] - d0
+    launches["hits"] += n_launch
+    line = dict(phase="sharded_serving", part="checkpoint",
+                config="100k_2d_fast_8x2", step=at, save_ms=save_ms,
+                detection_launches=n_launch,
+                restore_ms=restore_ms, restored_step=sc.step_count,
+                state_bit_equal_by_oid=restored_equal,
+                async_save_call_ms=async_ms, async_wait_ms=wait_ms,
+                checkpoint_stats=saved,
+                seconds=time.perf_counter() - t_part, card=smi)
+    emit(line)
+    # one step between save and restore: one launch a shard
+    if not restored_equal or sc.step_count != at \
+            or saved["async_saves"] != 2 or n_launch != d:
+        raise AssertionError(f"sharded_serving checkpoint: {line}")
+    del sc
+
+    # precise mode at the sharded phase's adopted survivor_k / cap
+    t_part = time.perf_counter()
+    d0, _ = launch_counts()
+    sc = ShardedScene(cfg_p, fleet=uniform, backend="fused", device=dev)
+    outs, ms = timed_calls(sc.step, SERVING_STEPS)
+    n_launch = launch_counts()[0] - d0
+    launches["survivors"] += n_launch
+    certs = [(int(o.overflow), int(o.alert_overflow)) for o in outs]
+    line = dict(phase="sharded_serving", part="scene", mode="survivors",
+                config="100k_2d_precise_8x2",
+                survivor_k=cfg_p.detect.survivor_k,
+                survivor_cap=cfg_p.survivor_cap,
+                ms_per_call=dict(step=dict(calls=len(ms),
+                                           median=statistics.median(ms),
+                                           **call_stats(ms))),
+                certificates=certs, detection_launches=n_launch,
+                num_risks=int(outs[-1].num_risks),
+                seconds=time.perf_counter() - t_part, card=smi)
+    emit(line)
+    if n_launch != SERVING_STEPS * d or any(of for of, _ in certs):
+        raise AssertionError(f"sharded_serving precise: {line}")
+    del sc
+
+    # ---- (d) the sharded service node over HTTP ----
+    t_part = time.perf_counter()
+    ckpt_dir = tempfile.mkdtemp(prefix="sharded_service_", dir=SCRATCH)
+    node = None
+    try:
+        node = ServiceNode(cfg_f, dev, ckpt_dir)
+        sc, base = node.scene, node.base
+        if not isinstance(sc, ShardedScene):
+            raise AssertionError(f"service: {type(sc).__name__}")
+        sc.adopt_fleet(uniform)
+        ms = {}
+
+        def request(route, method, path, body=None):
+            payload, t = http_call(base, method, path, body)
+            ms.setdefault(route, []).append(t)
+            return payload["data"]
+
+        # reports number their vehicles from oid 0, as the JAX ShardedScene
+        # does: they move fleet objects 0 .. 99 to pairs 30 m apart that
+        # straddle the first x wall, closing at 16 m/s
+        wall = cfg_f.world.hi[0] / sh.num_shards
+        rows = SERVING_REPORTS // 2
+        for i in range(SERVING_REPORTS):
+            side, row = i % 2, i // 2
+            request("POST /vehicles/location", "POST", "/vehicles/location",
+                    {"vehicle_id": f"report-{i}",
+                     "position": {"x": wall - 10.0 + 30.0 * side,
+                                  "y": (row + 0.5) * cfg_f.world.hi[1]
+                                  / rows},
+                     "velocity": {"x": 8.0 - 16.0 * side},
+                     "heading": 3.14159 * side})
+        d0, _ = launch_counts()
+        node.outputs.clear()
+        for _ in range(SERVING_HTTP_STEPS):
+            step = request("POST /step", "POST", "/step", {})
+        detect = request("POST /detect", "POST", "/detect", {})
+        n_launch = launch_counts()[0] - d0
+        certs = node.certificates()
+        alerts = request("GET /alerts", "GET", "/alerts")
+        launches["hits"] += n_launch
+        vids = {a["vehicle_id"] for a in alerts}
+        line = dict(phase="sharded_serving", part="service",
+                    config="100k_2d_fast_8x2", reports=SERVING_REPORTS,
+                    ms_per_request={r: dict(calls=len(v),
+                                            median=statistics.median(v),
+                                            **call_stats(v))
+                                    for r, v in ms.items()},
+                    last_step=step, detect=detect, alerts=len(alerts),
+                    reported_vehicles_alerted=sum(
+                        f"report-{i}" in vids
+                        for i in range(SERVING_REPORTS)),
+                    detection_launches=n_launch, certificates=certs,
+                    num_alive=sc.stats()["num_alive"],
+                    dropped_total=sc.dropped_total,
+                    seconds=time.perf_counter() - t_part, card=smi)
+        emit(line)
+        if n_launch != SERVING_HTTP_STEPS * d or any(of for of, _ in certs) \
+                or line["num_alive"] != n or sc.dropped_total \
+                or not line["reported_vehicles_alerted"]:
+            raise AssertionError(f"sharded_serving service: {line}")
+    finally:
+        if node is not None:
+            node.stop()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # the entry point a user starts, sharded
+    shard_args = ("--shards", "4", "--shards-y", "2")
+    emit(dict(phase="sharded_serving", part="entry_point",
+              command="python -m tpu_collide_torch.system --objects "
+                      f"{ENTRY_OBJECTS} --backend fused "
+                      + " ".join(shard_args) + " --api-port PORT",
+              **entry_point(("--device", str(dev)) + shard_args), card=smi))
+    return launches
+
+
+def by_oid_state(host, torch):
+    """The alive objects of a collected state in oid order."""
+    from tpu_collide_torch.core.state import FIELDS
+    alive = torch.nonzero(host.alive).flatten()
+    rows = alive[torch.argsort(host.oid[alive])]
+    return host.replace(**{f: getattr(host, f)[rows] for f in FIELDS})
 
 
 def main() -> None:
@@ -2699,6 +3341,10 @@ def main() -> None:
     sharded = sharded_phase(smi, torch, dev)
     sharded_launches = sharded["launches"]
 
+    # ---- sharded_serving: balance, sharded prediction, ShardedScene ----
+    serving_launches = sharded_serving_phase(smi, torch, dev,
+                                             sharded["adopted"])
+
     # ---- xla_path: the reference-shaped step ----
     cfg1k_p = tt.SystemConfig(num_objects=1000,
                               detect=DetectionConfig(mode="precise"))
@@ -2894,12 +3540,14 @@ def main() -> None:
                     launches=(launches[mode] + scene_launches[mode]
                               + service_launches[mode]
                               + scenario_launches[mode]
-                              + sharded_launches[mode]),
-                    launches_by_path=dict(main_path=launches[mode],
-                                          scene=scene_launches[mode],
-                                          service=service_launches[mode],
-                                          scenario=scenario_launches[mode],
-                                          sharded=sharded_launches[mode]),
+                              + sharded_launches[mode]
+                              + serving_launches[mode]),
+                    launches_by_path=dict(
+                        main_path=launches[mode], scene=scene_launches[mode],
+                        service=service_launches[mode],
+                        scenario=scenario_launches[mode],
+                        sharded=sharded_launches[mode],
+                        sharded_serving=serving_launches[mode]),
                     max_abs_err=max(err[mode],
                                     scenario["max_abs_err"][mode],
                                     sharded["max_abs_err"][mode]),
@@ -2912,10 +3560,12 @@ def main() -> None:
     kernels.append(dict(name="fused_topk[predict]", route="cuda",
                         source="tpu_collide_torch/csrc/fused_predict.cu",
                         replaces="tpu_collide/kernels/fused_detect.py:553",
-                        launches=n_pred + scene_launches["predict"],
+                        launches=(n_pred + scene_launches["predict"]
+                                  + serving_launches["predict"]),
                         launches_by_path=dict(
                             predict_path=n_pred,
-                            scene=scene_launches["predict"]),
+                            scene=scene_launches["predict"],
+                            sharded_serving=serving_launches["predict"]),
                         max_abs_err=pred_err,
                         ms=pred_ms[0], plain_ms=pred_ms[1],
                         bound_ms=pred_bound["bound_ms"],

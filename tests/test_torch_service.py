@@ -629,19 +629,36 @@ def test_service_against_jax():
                                    atol=1e-5)
 
 
-# ---- sharding is refused ----------------------------------------------------
+# ---- a sharded config -------------------------------------------------------
 
-def test_sharded_config_is_refused():
-    """The port's node has no ShardedScene: a config with more than one
-    shard, and the --shards flags, raise instead of serving one shard."""
-    from tpu_collide_torch.system import main
+def test_sharded_config_is_refused(monkeypatch):
+    """A sharded config is no longer refused: CollisionSystem builds a
+    ShardedScene for it, and the --shards flags reach the node's config
+    (tpu_collide/system.py:79-83, :313-318)."""
+    from tpu_collide_torch import system
+    from tpu_collide_torch.api.sharded_scene import ShardedScene
 
     cfg = small_cfg().replace(shard=ShardConfig(num_shards=2))
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        CollisionSystem(cfg, device="cpu")
-    for flag in ("--shards", "--shards-y", "--shards-z"):
-        with pytest.raises(NotImplementedError, match="ShardedScene"):
-            main(["--objects", "16", "--device", "cpu", flag, "2"])
+    node = CollisionSystem(cfg, device="cpu")
+    assert isinstance(node.scene, ShardedScene)
+    assert isinstance(CollisionSystem(small_cfg(), device="cpu").scene, Scene)
+
+    class Built(Exception):
+        pass
+
+    built = []
+
+    def capture(cfg, **kw):
+        built.append(cfg.shard)
+        raise Built
+
+    monkeypatch.setattr(system, "CollisionSystem", capture)
+    for flag, want in (("--shards", (2, 1, 1)), ("--shards-y", (1, 2, 1)),
+                       ("--shards-z", (1, 1, 2))):
+        with pytest.raises(Built):
+            system.main(["--objects", "16", "--device", "cpu", flag, "2"])
+        sh = built[-1]
+        assert (sh.num_shards, sh.num_shards_y, sh.num_shards_z) == want
 
 
 # ---- the entry point --------------------------------------------------------

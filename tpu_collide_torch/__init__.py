@@ -8,9 +8,10 @@ narrow phase kernel, refine tail), burst stepping, trajectory prediction
 (kernels/tune.py) and the block co-sort (kernels/block_sort.py), with the
 kernels written in CUDA C++ for Hopper (csrc/); the device scenario modes
 (sim/scenario.py); the sharded step (shard/: a mesh of shards in one
-process, migration and halo exchange, the fused kernel per shard); the
-serving surface (api.Scene) and the service node (system.py: runtime, REST
-routes, stdlib HTTP server; `python -m tpu_collide_torch.system`). Entry
+process, migration and halo exchange, the fused kernel per shard, load
+balancing, sharded prediction); the serving surface (api.Scene,
+api.ShardedScene) and the service node (system.py: runtime, REST routes,
+stdlib HTTP server; `python -m tpu_collide_torch.system`). Entry
 points run on the CUDA card unless given device='cpu'. The JAX package stays the reference
 the port is checked against; this package imports torch and never jax.
 """

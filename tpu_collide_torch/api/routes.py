@@ -288,15 +288,16 @@ class RouteTable:
                     out = scene.step(n)
                 # the three counters in one device-to-host copy (a CUDA
                 # tensor does not convert through numpy), under the Scene's
-                # device lock as every other device call
+                # device lock as every other device call; sums and max:
+                # sharded outputs carry a count per shard
                 with scene._device_lock:
                     risks, count, top = to_host(
                         [out.num_risks, out.alerts.count, out.max_risk])
                 return 200, _ok({
                     "step_count": scene.step_count,
-                    "num_risks": int(risks),
-                    "num_alerts": int(count),
-                    "max_risk": float(top)})
+                    "num_risks": int(risks.sum()),
+                    "num_alerts": int(count.sum()),
+                    "max_risk": float(top.max())})
 
             if method == "POST" and path == "/detect":
                 batch = scene.detect()

@@ -123,16 +123,17 @@ def _apply_updates(state: ObjectState, slot: np.ndarray, pos, vel, acc,
         alive=put(state.alive, np.ones(len(slot), bool)))
 
 
-def _compact(state, other, valid, risk, ttc, dist, cfg: SystemConfig,
+def _compact(oid, other, valid, risk, ttc, dist, cfg: SystemConfig,
              r_cap: int):
     """The r_cap highest qualifying (risk >= risk_low) merged entries, ties
-    by the lower flat index as the JAX package's top_k breaks them."""
+    by the lower flat index as the JAX package's top_k breaks them; `oid`
+    names each row's object."""
     kk = risk.shape[1]
     keep = valid & (risk >= cfg.alerts.risk_low)
     keyv = torch.where(keep, risk, torch.full_like(risk, -1.0)).reshape(-1)
     top_r, top_i = stable_topk(keyv, min(r_cap, keyv.numel()))
     sel = lambda x: x.reshape(-1)[top_i]
-    return (top_r, state.oid[top_i // kk], sel(other), sel(ttc), sel(dist),
+    return (top_r, oid[top_i // kk], sel(other), sel(ttc), sel(dist),
             keep.sum(dtype=torch.int32))
 
 
@@ -145,7 +146,7 @@ def _predict_device_fused(state, traj, cfg: SystemConfig, horizon: float,
      slot_trunc) = fused_predict(state, traj, cfg, horizon=horizon,
                                  step=step, window_rows=window_rows,
                                  k_slots=k_slots)
-    return _compact(state, other, valid, risk, ttc, dist, cfg, r_cap) + (
+    return _compact(state.oid, other, valid, risk, ttc, dist, cfg, r_cap) + (
         overflow.to(torch.int32), slot_oflow, slot_trunc)
 
 
@@ -161,13 +162,77 @@ def _predict_device(state, traj, cfg: SystemConfig, horizon: float,
         state, traj, index, cfg, horizon=horizon, step=step)
     other = state.oid[other.to(torch.int64)]
     zero = torch.zeros((), dtype=torch.int32, device=state.device)
-    return _compact(state, other, valid, risk, ttc, dist, cfg, r_cap) + (
+    return _compact(state.oid, other, valid, risk, ttc, dist, cfg, r_cap) + (
         grid_overflow(index, cfg).to(torch.int32), zero, zero)
 
 
-class Scene:
-    """Single-device scene. (For mesh-sharded fleets, the JAX package's
-    ShardedScene; the port has no sharded facade yet.)"""
+class SceneHost:
+    """The host-only part of the Scene surface, which Scene and
+    api.ShardedScene share: each vehicle's last ten reports, the alert and
+    risk queries over the alert manager, the checkpoint manager and the
+    call timing. It touches no device state. `_init_host` sets what it
+    reads: `alert_manager`, `ckpt`, `step_count`, `_history` and
+    `stats_timing`."""
+
+    def _init_host(self, cfg: SystemConfig, broker,
+                   checkpoint_dir: Optional[str]) -> None:
+        self.alert_manager = AlertManager(cfg, broker=broker)
+        self.ckpt = (CheckpointManager(checkpoint_dir)
+                     if checkpoint_dir else None)
+        self.step_count = 0
+        self._history: Dict[str, List[LocationData]] = {}
+        self.stats_timing = {"steps": 0, "total_ms": 0.0, "max_ms": 0.0}
+
+    def _remember(self, location: LocationData) -> None:
+        hist = self._history.setdefault(location.vehicle_id, [])
+        hist.append(location)
+        del hist[:-10]                      # last-10 (storage.py:156-191)
+
+    def _time_calls(self, n: int, ms: float) -> None:
+        """n steps (or one detect) that took ms in all."""
+        self.stats_timing["steps"] += n
+        self.stats_timing["total_ms"] += ms
+        self.stats_timing["max_ms"] = max(self.stats_timing["max_ms"],
+                                          ms / n)
+
+    def _count_steps(self, n: int, ms: float) -> None:
+        self.step_count += n
+        self._time_calls(n, ms)
+
+    def get_location(self, vehicle_id: str) -> Optional[LocationData]:
+        hist = self._history.get(vehicle_id)
+        return hist[-1] if hist else None
+
+    def get_history(self, vehicle_id: str) -> List[LocationData]:
+        return list(self._history.get(vehicle_id, []))
+
+    def get_vehicle_risks(self, vehicle_id: str) -> List[CollisionRisk]:
+        out = []
+        for a in self.alert_manager.get_vehicle_alerts(vehicle_id):
+            out.append(CollisionRisk(
+                id=a.id, vehicle_id=a.vehicle_id,
+                other_vehicle_id=a.other_vehicle_id,
+                risk_level=a.risk_level,
+                time_to_collision=a.time_to_collision,
+                distance=float("nan"), timestamp=a.timestamp))
+        return out
+
+    def alerts(self, min_risk: float = 0.0,
+               vehicle_id: Optional[str] = None) -> List[Alert]:
+        src = (self.alert_manager.get_vehicle_alerts(vehicle_id)
+               if vehicle_id else list(self.alert_manager.alerts.values()))
+        out = [a for a in src if a.risk_level >= min_risk]
+        return sorted(out, key=lambda a: (-a.priority, -a.risk_level))
+
+    def _require_ckpt(self) -> CheckpointManager:
+        if self.ckpt is None:
+            raise RuntimeError(
+                f"{type(self).__name__} built without checkpoint_dir")
+        return self.ckpt
+
+
+class Scene(SceneHost):
+    """Single-device scene (a sharded fleet: api.ShardedScene)."""
 
     def __init__(self, cfg: SystemConfig,
                  state: Optional[ObjectState] = None,
@@ -226,19 +291,14 @@ class Scene:
         self._last_retune = 0
         self._rebuild_step()
         self._detect = make_detect(cfg, device=self.device)
-        self.alert_manager = AlertManager(cfg, broker=broker)
-        self.ckpt = (CheckpointManager(checkpoint_dir)
-                     if checkpoint_dir else None)
-        self.step_count = 0
+        self._init_host(cfg, broker, checkpoint_dir)
         # one generator, drawn from in the same order by step, step_burst
         # and step_pipelined, so that they compute the same trajectories
         self._gen = torch.Generator(device=self.device).manual_seed(0)
         self._id_to_slot: Dict[str, int] = {}
         self._slot_to_id: Dict[int, str] = {}
-        self._history: Dict[str, List[LocationData]] = {}
         self._pending: List[LocationData] = []
         self._pending_meta: List[tuple] = []
-        self.stats_timing = {"steps": 0, "total_ms": 0.0, "max_ms": 0.0}
         # All device-touching methods serialize on this lock, so that a
         # concurrent reader (a REST stats/query thread) never sees a state
         # half replaced
@@ -292,9 +352,7 @@ class Scene:
         with self._device_lock:     # _flush_locked iterates+clears _pending
             self._pending.append(location)
             self._pending_meta.append((size, _TYPE_INDEX.get(vtype, 0)))
-        hist = self._history.setdefault(location.vehicle_id, [])
-        hist.append(location)
-        del hist[:-10]                      # last-10 (storage.py:156-191)
+        self._remember(location)
 
     def flush(self) -> int:
         """Apply buffered ingests to the device in one indexed write."""
@@ -402,13 +460,6 @@ class Scene:
         self._num_alive = alive
         self.alert_manager.process_batch(alerts, resolver=self.vehicle_id_of)
         return out
-
-    def _count_steps(self, n: int, ms: float) -> None:
-        self.step_count += n
-        self.stats_timing["steps"] += n
-        self.stats_timing["total_ms"] += ms
-        self.stats_timing["max_ms"] = max(self.stats_timing["max_ms"],
-                                          ms / n)
 
     def _heal(self, overflow: int, alert_overflow: int) -> None:
         if self._auto_buckets and overflow > 0:
@@ -842,32 +893,11 @@ class Scene:
             fields = [f.name for f in dataclasses.fields(AlertBatch)]
             batch = AlertBatch(**dict(zip(fields, to_host(
                 [getattr(batch, f) for f in fields]))))
-        self.stats_timing["steps"] += 1
-        self.stats_timing["total_ms"] += t.elapsed_ms
-        self.stats_timing["max_ms"] = max(self.stats_timing["max_ms"],
-                                          t.elapsed_ms)
+        self._time_calls(1, t.elapsed_ms)
         self.alert_manager.process_batch(batch, resolver=self.vehicle_id_of)
         return batch
 
     # ---- queries ----
-
-    def get_location(self, vehicle_id: str) -> Optional[LocationData]:
-        hist = self._history.get(vehicle_id)
-        return hist[-1] if hist else None
-
-    def get_history(self, vehicle_id: str) -> List[LocationData]:
-        return list(self._history.get(vehicle_id, []))
-
-    def get_vehicle_risks(self, vehicle_id: str) -> List[CollisionRisk]:
-        out = []
-        for a in self.alert_manager.get_vehicle_alerts(vehicle_id):
-            out.append(CollisionRisk(
-                id=a.id, vehicle_id=a.vehicle_id,
-                other_vehicle_id=a.other_vehicle_id,
-                risk_level=a.risk_level,
-                time_to_collision=a.time_to_collision,
-                distance=float("nan"), timestamp=a.timestamp))
-        return out
 
     def drop_fraction(self, fraction: float) -> int:
         """Fault injection: kill `fraction` of the alive fleet (the
@@ -908,19 +938,7 @@ class Scene:
         hit = alive & (c3[:, 0] == cx) & (c3[:, 1] == cy) & (c3[:, 2] == cz)
         return [self.vehicle_id_of(o) for o in oids[hit]]
 
-    def alerts(self, min_risk: float = 0.0,
-               vehicle_id: Optional[str] = None) -> List[Alert]:
-        src = (self.alert_manager.get_vehicle_alerts(vehicle_id)
-               if vehicle_id else list(self.alert_manager.alerts.values()))
-        out = [a for a in src if a.risk_level >= min_risk]
-        return sorted(out, key=lambda a: (-a.priority, -a.risk_level))
-
     # ---- reliability ----
-
-    def _require_ckpt(self) -> CheckpointManager:
-        if self.ckpt is None:
-            raise RuntimeError("Scene built without checkpoint_dir")
-        return self.ckpt
 
     def save_checkpoint(self, metadata: Optional[dict] = None) -> str:
         ckpt = self._require_ckpt()

@@ -366,7 +366,7 @@ def _predict_pairs(cl: CellList, own, cand, t, cfg: SystemConfig,
                        torch.where(hit, t_hit, zero), _norm(sep_vel),
                        fo[:, FI["heading"]], fc[:, FI["heading"]],
                        fo[:, FI["otype"]], fc[:, FI["otype"]], safe, det)
-    return (cl.oid[cand], hit, torch.where(hit, risk, zero),
+    return (cl.oid_decoded[cand], hit, torch.where(hit, risk, zero),
             torch.where(hit, t_hit + t, inf), torch.where(hit, d_hit, inf))
 
 
@@ -476,8 +476,9 @@ def fused_predict_rows(state, cls, cfg: SystemConfig, horizon: float = 10.0,
     """Row-space core of the fused prediction. `cls` is the [N] trajectory
     class in state order. Returns per SORTED row:
 
-        (other [m, merge_k] int32 oids, valid, risk, ttc, dist,
-         soid [m] int32 row oids (-1 for dead rows), own [m] bool,
+        (other [m, merge_k] int32 oids (halo marks undone), valid, risk,
+         ttc, dist, soid [m] int32 row oids (-1 for dead rows and halo
+         mirrors), own [m] bool (cl.own: alive and not a mirror),
          overflow [] int32 (0: the kernel walks exact stencil runs),
          slot_oflow [] int32 uncertified slot truncations,
          slot_trunc [] int32 all counted truncations)
@@ -489,7 +490,9 @@ def fused_predict_rows(state, cls, cfg: SystemConfig, horizon: float = 10.0,
     so values follow it, and merged per pair. A truncated (offset, row) is
     certified when every hit it dropped (at most the lowest kept slot's
     risk + PREDICT_KEY_MARGIN) lies strictly below the row's merge_k-th pool
-    risk. `window_rows` is accepted and ignored. Waits for the device once
+    risk. Halo mirrors (marked oids, shard/halo.extend_with_halo) are
+    candidates only: their rows emit nothing and count no truncation.
+    `window_rows` is accepted and ignored. Waits for the device once
     for the selected pairs' count, and in the hot top-up."""
     del window_rows
     det = cfg.detect
@@ -504,9 +507,8 @@ def fused_predict_rows(state, cls, cfg: SystemConfig, horizon: float = 10.0,
     sub_steps = sub_window_config(det, sub_window).num_time_steps
     cl = build_cell_list(state, cfg, cls=cls)
     m = cl.n
-    # alive, not cl.own: no halo reaches the prediction's cell list until
-    # the sharded prediction is ported
-    own = cl.alive
+    # halo mirrors (shard/predict.py) are candidates only: no query rows
+    own = cl.own
     s = predict_topk(cl, cfg, offs, k_slots, sub_steps)
 
     # recompute the occupied slots' pairs
@@ -531,7 +533,7 @@ def fused_predict_rows(state, cls, cfg: SystemConfig, horizon: float = 10.0,
         merged, slot_oflow = _predict_hot_topup(
             cl, cfg, offs, uncert, excess, k_slots, slot_cols, merged,
             merge_k, sub_window)
-    soid = torch.where(own, cl.oid, torch.full_like(cl.oid, -1))
+    soid = torch.where(own, cl.oid_decoded, torch.full_like(cl.oid, -1))
     return tuple(merged) + (soid, own, cl.overflow, slot_oflow, slot_trunc)
 
 

@@ -42,7 +42,7 @@ from tpu_collide_torch.kernels.refine import (fused_scene_fast,
                                               fused_scene_precise)
 from tpu_collide_torch.shard.collective import Mesh, pmax, psum
 from tpu_collide_torch.shard.halo import (axis_shards, extend_with_halo,
-                                          halo_exchange, migrate)
+                                          halo_exchange_hops, migrate)
 from tpu_collide_torch.sim.integrator import integrate
 from tpu_collide_torch.sim.scenario import ScenarioState, scenario_integrate
 
@@ -116,7 +116,7 @@ def check_boundaries(cfg: SystemConfig, boundaries, dim: int = 0) -> None:
     `dim`: monotone, pinned to the world's bounds, and wide enough that the
     halo covers the search radius and no object crosses more than one slab
     per step. Raises ValueError."""
-    b = np.asarray(torch.as_tensor(boundaries).cpu())
+    b = torch.as_tensor(boundaries).cpu().numpy()
     d, _ = axis_shards(cfg, dim)
     if b.shape != (d + 1,):
         raise ValueError(f"axis-{dim} walls of shape {b.shape}, want "
@@ -142,7 +142,7 @@ def _shard_of(pos, cfg: SystemConfig, boundaries=None, boundaries_y=None,
             lo = cfg.world.lo[dim]
             w = (cfg.world.hi[dim] - cfg.world.lo[dim]) / d
             return np.clip(((pos[:, dim] - lo) // w).astype(int), 0, d - 1)
-        b = np.asarray(torch.as_tensor(b).cpu())
+        b = torch.as_tensor(b).cpu().numpy()
         return np.clip(np.searchsorted(b, pos[:, dim], side="right") - 1,
                        0, d - 1)
 
@@ -166,7 +166,7 @@ def distribute_state(state_global: ObjectState, cfg: SystemConfig,
     Host-side numpy: bootstrap, not the hot path."""
     d = mesh.size
     slots = shard_slots(cfg)
-    host = lambda v: np.asarray(torch.as_tensor(v).cpu())
+    host = lambda v: torch.as_tensor(v).cpu().numpy()
     fields = {f: host(getattr(state_global, f)) for f in FIELDS}
     xfields = {f: host(v) for f, v in (extra or {}).items()}
     shard_of = _shard_of(fields["pos"], cfg, boundaries, boundaries_y,
@@ -263,13 +263,20 @@ def _migrate_phases(states, cfg: SystemConfig, mesh: Mesh, walls,
     return states, extras, dropped
 
 
-def _halo_extend(states, cfg: SystemConfig, mesh: Mesh, walls, mark: bool):
+def _halo_extend(states, cfg: SystemConfig, mesh: Mesh, walls, mark: bool,
+                 width: float | None = None, capacity: int | None = None,
+                 hops=(1, 1, 1)):
     """Mirror x bands, then y bands of the x-extended states, then z bands
     of the xy-extended ones, so that edge and corner neighbourhoods arrive
-    in at most three hops. Returns (extended states, dropped)."""
+    in at most three hops. width / capacity override the config's halo
+    band (None: ShardConfig's); hops[dim] is the band's reach in slabs
+    along world axis dim (halo_exchange_hops). Returns (extended states,
+    dropped)."""
     ext, dropped = states, None
     for dim in _phases(cfg):
-        halo = halo_exchange(ext, cfg, mesh, walls[dim], dim=dim)
+        halo = halo_exchange_hops(ext, cfg, mesh, walls[dim], dim=dim,
+                                  width=width, capacity=capacity,
+                                  hops=hops[dim])
         ext = tuple(extend_with_halo(st, buf, valid, mark_halo=mark)
                     for st, (buf, valid, _) in zip(ext, halo))
         drop = tuple(h[2] for h in halo)

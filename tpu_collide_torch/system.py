@@ -13,11 +13,11 @@ Start order mirrors the reference (:224-257): broker -> storage -> scheduler
 backup (the rebalance+backup analog, :377-386).
 
 The port of tpu_collide/system.py: the Scene lives on `device` (the CUDA
-card unless another is named). A sharded configuration is refused: the port
-has no ShardedScene yet.
+card unless another is named). A sharded configuration gets a ShardedScene
+whose shards all lie on that device.
 
     python -m tpu_collide_torch.system --objects 10000 --backend fused \
-        --api-port 8000
+        --api-port 8000 [--shards 4 --shards-y 2]
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ from tpu_collide_torch.core.config import SystemConfig
 from tpu_collide_torch.core.types import LoadMetrics, NodeInfo
 from tpu_collide_torch.core.utils import get_logger, setup_logging
 from tpu_collide_torch.api.scene import Scene
+from tpu_collide_torch.api.sharded_scene import ShardedScene
 from tpu_collide_torch.ckpt.checkpoint import BackupManager
 from tpu_collide_torch.runtime.messaging import MessageBroker
 from tpu_collide_torch.runtime.scheduler import Scheduler, TaskWorker
@@ -44,11 +45,6 @@ from tpu_collide_torch.runtime.storage import (InMemoryStorage, StorageFactory,
                                                CollisionRiskStorage)
 
 logger = get_logger(__name__)
-
-_NO_SHARDS = ("the PyTorch port's service node has no ShardedScene yet "
-              "(ROADMAP Queue A item 3): run with one shard, or drive "
-              "tpu_collide_torch.shard.make_sharded_step directly")
-
 
 class CollisionSystem:
     """One node of the collision-detection service."""
@@ -67,8 +63,6 @@ class CollisionSystem:
                  bridge_relay: bool = False,
                  auto_retune_every: int = 0, device=None):
         self.cfg = cfg or SystemConfig()
-        if self.cfg.shard.total_shards > 1:
-            raise NotImplementedError(_NO_SHARDS)
         self.node_id = node_id
         self.detection_hz = detection_hz
         self.checkpoint_every_s = checkpoint_every_s
@@ -88,11 +82,20 @@ class CollisionSystem:
         self.location_storage = VehicleLocationStorage(self.storage)
         self.risk_storage = CollisionRiskStorage(self.storage)
 
-        # layer 2: device engine + alerts — a single-device Scene
-        self.scene = Scene(self.cfg, checkpoint_dir=checkpoint_dir,
-                           broker=self.broker, backend=backend,
-                           auto_retune_every=auto_retune_every,
-                           device=device)
+        # layer 2: device engine + alerts — a single-device Scene, or the
+        # sharded ShardedScene when the config asks for shards (the
+        # multi-node deployment runs the same service surface)
+        if self.cfg.shard.total_shards > 1:
+            self.scene = ShardedScene(self.cfg,
+                                      checkpoint_dir=checkpoint_dir,
+                                      broker=self.broker, backend=backend,
+                                      auto_retune_every=auto_retune_every,
+                                      device=device)
+        else:
+            self.scene = Scene(self.cfg, checkpoint_dir=checkpoint_dir,
+                               broker=self.broker, backend=backend,
+                               auto_retune_every=auto_retune_every,
+                               device=device)
 
         # layer 3: scheduling
         self.scheduler = Scheduler(self.broker)
@@ -225,7 +228,8 @@ class CollisionSystem:
 
     def _task_detect(self, payload: dict) -> dict:
         batch = self.scene.detect()
-        return {"num_alerts": int(batch.count)}
+        # a sharded batch counts its alerts per shard
+        return {"num_alerts": int(batch.count.sum())}
 
     def _task_checkpoint(self, payload: dict) -> dict:
         return {"path": self.scene.save_checkpoint()}
@@ -278,11 +282,13 @@ def main(argv=None) -> None:
                     help="step engine: the exact reference-shaped "
                          "pipeline or the fused CUDA kernel (big fleets)")
     ap.add_argument("--shards", type=int, default=None,
-                    help="refused until the port has a ShardedScene")
+                    help="shard the world over x slabs (all shards on "
+                         "--device)")
     ap.add_argument("--shards-y", type=int, default=None,
-                    help="refused, as --shards")
+                    help="y tiles of a 2D (x, y) grid of shards")
     ap.add_argument("--shards-z", type=int, default=None,
-                    help="refused, as --shards")
+                    help="z tiles of a 3D (x, y, z) grid of shards "
+                         "(deep-z worlds / stacked airspace layers)")
     ap.add_argument("--device", default=None,
                     help="torch device of the Scene (default: the CUDA "
                          "card; 'cpu' to run without one)")
@@ -318,7 +324,11 @@ def main(argv=None) -> None:
         cfg = cfg.replace(detect=_dc.replace(cfg.detect,
                                              mode=args.detect_mode))
     if args.shards or args.shards_y or args.shards_z:
-        raise NotImplementedError(_NO_SHARDS)
+        import dataclasses as _dc
+        cfg = cfg.replace(shard=_dc.replace(
+            cfg.shard, num_shards=args.shards or cfg.shard.num_shards,
+            num_shards_y=args.shards_y or cfg.shard.num_shards_y,
+            num_shards_z=args.shards_z or cfg.shard.num_shards_z))
 
     def addr(s_):
         host, port = s_.rsplit(":", 1)
