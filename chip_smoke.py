@@ -132,6 +132,24 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    CollisionSystem over HTTP (reports, POST /step, /detect,
                    GET /alerts, every answer 200) and python -m
                    tpu_collide_torch.system --shards 4 --shards-y 2
+  bench            the load harness (bench_phase): (a) the reference's
+                   measured harness runs (BASELINE.md: 1k city skew
+                   precise at 1,000 TPS for 10 s, 5k at 5,000 TPS for 5
+                   s) and (b) bench.py's flagship sizes (100k-2D and
+                   1M-3D, fast and precise, flat out for 5 s) through
+                   PerformanceTester(backend="fused"): each row certified
+                   on the harness's own fleet and generators, then timed
+                   (req/s, avg / p95 / p99 / max ms, errors, total_risks),
+                   then replayed through make_step: every step's
+                   certificates 0, the replayed risks summing to
+                   total_risks, one detection launch a step; (c) a
+                   profiled run whose Chrome trace names fused_topk_kernel
+                   once a step, and python -m
+                   tpu_collide_torch.bench.harness writing the reference's
+                   artifact triplet; (d) python -m
+                   tpu_collide_torch.bench.run_benchmark (benchmark.sh's
+                   settings, 10 s): no load error, simulator updates, a
+                   tenth of the live objects killed, a monitor CSV
   xla_path         make_step(cfg, backend="xla") at bench.py's XLA rows
                    (1k precise and 1k fast, city skew) and
                    make_step(cfg100k, chunk_size=8192) on a uniform 100k
@@ -152,8 +170,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    against torch.sort plus gathers; the launches per sort
 
 The line before the last lists the kernels with their launches (the
-detection kernels' on main_path, scene, service, scenario, sharded and
-sharded_serving, the predict kernel's on predict_path, scene and
+detection kernels' on main_path, scene, service, scenario, sharded,
+sharded_serving and bench, the predict kernel's on predict_path, scene and
 sharded_serving, the co-sort's on cosort_vs_plain; the
 sum, and each path's in launches_by_path), their times and their bounds;
 the last line
@@ -2962,6 +2980,279 @@ def sharded_serving_phase(smi, torch, dev, adopted) -> dict:
     return launches
 
 
+# ---- bench: the load harness (tpu_collide_torch/bench/) -------------------
+
+# steps of the harness's schedule (the warm-up and the first measured steps)
+# that certified() replays before a row's timed run
+BENCH_CERT_STEPS = 20
+# the reference's records of its two harness runs (BASELINE.md), on a
+# single-process CPU: printed beside the rows, not targets
+REFERENCE_CPU = {
+    "1k_precise_cityskew": dict(
+        vehicles=1000, target_tps=1000, seconds=30, avg_ms=99.32,
+        steps_per_s=9.44, hardware="single-process CPU",
+        source="BASELINE.md"),
+    "5k_precise_cityskew": dict(
+        vehicles=5000, target_tps=5000, seconds=60, avg_ms=73275.27,
+        steps_per_s=0.01, steps=1, hardware="single-process CPU",
+        source="BASELINE.md (unoptimized test: no second step)")}
+# the profiled harness run: target TPS and seconds
+BENCH_PROFILE_TPS, BENCH_PROFILE_S = 50, 0.5
+# python -m tpu_collide_torch.bench.harness (the README's run, shorter) and
+# python -m tpu_collide_torch.bench.run_benchmark (benchmark.sh's settings
+# with a shorter duration)
+BENCH_CLI_ARGS = ("--vehicles", "1000", "--tps", "1000", "--duration", "5",
+                  "--backend", "fused", "--mode", "fast")
+ORCHESTRATED_ARGS = ("--vehicles", "1000", "--tps", "200", "--duration",
+                     "10", "--sim-duration", "5", "--mode", "fast",
+                     "--inject-failure")
+BENCH_SUBPROCESS_S = 300
+# the reference's artifact headers (tpu_collide/bench/harness.py:161-168)
+LATENCIES_HEADER = "latency_ms"
+METRICS_HEADER = ("timestamp,throughput,avg_latency,p95_latency,p99_latency,"
+                  "max_latency,error_rate,cpu_usage,memory_usage")
+
+
+def bench_rows():
+    """(name, cfg, distribution, target TPS, seconds) of the bench phase:
+    the reference's two measured harness runs (BASELINE.md) at the harness
+    CLI's configuration, then bench.py's flagship sizes flat out."""
+    import tpu_collide_torch as tt
+    from tpu_collide_torch.core.config import DetectionConfig
+    cfg100k, cfg1m = bench_configs()
+    precise = lambda c: c.replace(detect=dataclasses.replace(
+        c.detect, mode="precise"))
+    harness_cfg = lambda n: tt.SystemConfig(
+        num_objects=n, detect=DetectionConfig(mode="precise"))
+    return (
+        ("1k_precise_cityskew", harness_cfg(1000), "city_skew", 1000, 10.0),
+        ("5k_precise_cityskew", harness_cfg(5000), "city_skew", 5000, 5.0),
+        ("100k_2d_fast", cfg100k, "uniform", 0, 5.0),       # bench.py:337
+        ("100k_2d_precise", precise(cfg100k), "uniform", 0, 5.0),  # :355
+        ("1m_3d_fast", cfg1m, "uniform", 0, 5.0),            # bench.py:364
+        ("1m_3d_precise", precise(cfg1m), "uniform", 0, 5.0),    # :389
+    )
+
+
+def harness_replay(cfg, dist, n, torch, dev) -> tuple:
+    """The first n steps of the harness's schedule (its fleet from seed 0,
+    then the warm-up step and the measured steps from seeds 1, 2, ...)
+    through make_step(cfg, backend="fused"): (num_risks of each step, worst
+    overflow, worst alert_overflow)."""
+    import tpu_collide_torch as tt
+    from tpu_collide_torch.bench.harness import seeded
+    from tpu_collide_torch.sim import generate_fleet
+    state = generate_fleet(seeded(0, dev), cfg, distribution=dist)
+    step = tt.make_step(cfg, backend="fused", device=dev)
+    risks = []
+    worst_of = torch.zeros((), dtype=torch.int32, device=dev)
+    worst_ao = torch.zeros((), dtype=torch.int32, device=dev)
+    for i in range(n):
+        state, out = step(state, seeded(1 + i, dev))
+        risks.append(out.num_risks)
+        worst_of = torch.maximum(worst_of, out.overflow)
+        worst_ao = torch.maximum(worst_ao, out.alert_overflow)
+    return torch.stack(risks).tolist(), int(worst_of), int(worst_ao)
+
+
+def metrics_line(m, tester) -> dict:
+    return dict(throughput_rps=m.throughput, avg_ms=m.avg_latency,
+                p95_ms=m.p95_latency, p99_ms=m.p99_latency,
+                max_ms=m.max_latency, error_rate_pct=m.error_rate,
+                requests=tester.request_count,
+                total_risks=tester.total_risks)
+
+
+def bench_row(name, cfg, dist, tps, seconds, smi, torch, dev) -> tuple:
+    """One row: certified() on the harness's fleet and generators, the
+    timed PerformanceTester(backend="fused") run, then its steps replayed
+    through make_step. Fails unless every replayed step has certificates
+    0, the replayed measured steps' num_risks sum to total_risks, no step
+    failed, and the run launched the detection kernel once a step (the
+    warm-up included). Returns (the configuration adopted, launches)."""
+    from tpu_collide_torch.bench.harness import PerformanceTester
+    from tpu_collide_torch.kernels.fused_detect import fused_topk
+    t0 = time.perf_counter()
+
+    def drive(c):
+        _, worst_of, worst_ao = harness_replay(c, dist, BENCH_CERT_STEPS,
+                                               torch, dev)
+        return max(worst_of, worst_ao), None
+    cfg, worst, _, attempts = certified(cfg, drive)
+    if worst:
+        raise AssertionError(f"bench {name}: certificate {worst} after "
+                             f"{attempts} attempts")
+    tester = PerformanceTester(cfg, backend="fused", distribution=dist,
+                               device=dev)
+    fused_topk.launches = 0
+    m = tester.run_test(tps, seconds, save=False)
+    launched = fused_topk.launches
+    steps = tester.request_count + 1
+    risks, worst_of, worst_ao = harness_replay(cfg, dist, steps, torch, dev)
+    line = dict(phase="bench", row=name, n=cfg.num_objects,
+                distribution=dist, mode=cfg.detect.mode, target_tps=tps,
+                seconds=seconds, **metrics_line(m, tester),
+                replay_total_risks=sum(risks[1:]), replayed_steps=steps,
+                worst_overflow=worst_of, worst_alert_overflow=worst_ao,
+                kernel_launches=launched, attempts=attempts,
+                max_alerts_per_object=cfg.alerts.max_alerts_per_object,
+                survivor_k=cfg.detect.survivor_k,
+                survivor_cap=cfg.survivor_cap,
+                reference_cpu_record=REFERENCE_CPU.get(name),
+                wall_s=time.perf_counter() - t0, card=smi)
+    emit(line)
+    if tester.error_count or worst_of or worst_ao \
+            or line["replay_total_risks"] != tester.total_risks \
+            or launched != steps:
+        raise AssertionError(f"bench {name}: {line}")
+    return cfg, launched
+
+
+def trace_kernels(directory, name) -> tuple:
+    """(files, device kernel events whose name holds `name`) of the
+    torch.profiler Chrome traces in `directory`."""
+    files = sorted(pathlib.Path(directory).glob("*.pt.trace.json"))
+    n = 0
+    for p in files:
+        with open(p) as f:
+            n += sum(1 for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel" and name in e.get("name", ""))
+    return len(files), n
+
+
+def bench_subprocess(module, args) -> tuple:
+    """python -m `module` *args from the repository's root, on the card
+    unless the arguments name another device: (exit code, seconds, its
+    standard output, the end of its standard error)."""
+    import os
+    import sys
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=BENCH_SUBPROCESS_S)
+    return (res.returncode, time.perf_counter() - t0, res.stdout,
+            res.stderr[-3000:])
+
+
+def bench_cli(work) -> dict:
+    """python -m tpu_collide_torch.bench.harness: exits 0 and writes the
+    reference's artifact triplet with its headers and no error."""
+    rc, secs, out, err = bench_subprocess(
+        "tpu_collide_torch.bench.harness",
+        BENCH_CLI_ARGS + ("--output-dir", work))
+    if rc != 0:
+        raise AssertionError(f"bench harness CLI exited {rc}: {err}")
+    triplet = {}
+    for suffix in ("latencies.csv", "metrics.csv", "summary.txt"):
+        (path,) = pathlib.Path(work).glob(
+            f"perf_test_1000vehicles_1000tps_5s_*_{suffix}")
+        triplet[suffix] = path.read_text().splitlines()
+    summary = dict(ln.strip().split(": ", 1)
+                   for ln in triplet["summary.txt"] if ": " in ln)
+    if triplet["latencies.csv"][0] != LATENCIES_HEADER \
+            or triplet["metrics.csv"][0] != METRICS_HEADER \
+            or summary["Total errors"] != "0" \
+            or len(triplet["latencies.csv"]) - 1 \
+            != int(summary["Total requests"]):
+        raise AssertionError(f"bench harness CLI artifacts: {summary}")
+    return dict(command="python -m tpu_collide_torch.bench.harness "
+                        + " ".join(BENCH_CLI_ARGS),
+                exit_code=rc, seconds=secs, printed=out.strip(),
+                summary=summary)
+
+
+def bench_orchestrated(work) -> dict:
+    """python -m tpu_collide_torch.bench.run_benchmark: exits 0 with no
+    load error, simulator updates, a tenth of the live objects killed (as
+    the route rounds it) and a monitor CSV; fails if the monitor reached
+    the service in no sample."""
+    import csv
+    rc, secs, _, err = bench_subprocess(
+        "tpu_collide_torch.bench.run_benchmark",
+        ORCHESTRATED_ARGS + ("--output-dir", work))
+    if rc != 0:
+        raise AssertionError(f"run_benchmark exited {rc}: {err}")
+    (path,) = pathlib.Path(work).glob("benchmark_*_summary.json")
+    summary = json.loads(path.read_text())
+    (mon,) = pathlib.Path(work).glob("monitor_*.csv")
+    with open(mon) as f:
+        samples = list(csv.DictReader(f))
+    unreachable = sum(1 for s in samples if s.get("svc_unreachable") == "1")
+    killed = summary["fault"]["data"]["killed"]
+    live = summary["system"]["num_alive"] + killed
+    line = dict(command="python -m tpu_collide_torch.bench.run_benchmark "
+                        + " ".join(ORCHESTRATED_ARGS),
+                exit_code=rc, seconds=secs, load=summary["load"],
+                sim_updates=summary["sim_updates"], killed=killed,
+                live_before_fault=live, system=summary["system"],
+                avg_detect_ms=summary["system"]["avg_detect_ms"],
+                monitor_samples=len(samples),
+                monitor_unreachable=unreachable)
+    if summary["load"]["errors"] or not summary["sim_updates"] > 0 \
+            or killed != int(live * 0.1) or not killed \
+            or not samples or unreachable == len(samples):
+        raise AssertionError(f"run_benchmark: {line}")
+    return line
+
+
+def bench_phase(smi, torch, dev) -> dict:
+    """The load harness on the card: (a) the reference's measured harness
+    runs and (b) bench.py's flagship sizes through
+    PerformanceTester(backend="fused"), each certified, timed and replayed
+    (bench_row); (c) a profiled run whose trace names the detection kernel,
+    and the harness CLI as a user runs it; (d) the orchestrated run.
+    Emits one line per part; returns the detection kernel's launches on the
+    path by mode."""
+    import shutil
+    import tempfile
+    from tpu_collide_torch.bench.harness import PerformanceTester
+    from tpu_collide_torch.kernels.fused_detect import fused_topk
+    t_phase = time.perf_counter()
+    mode_of = {"fast": "hits", "precise": "survivors"}
+    launches = {"hits": 0, "survivors": 0}
+    adopted = {}
+    for name, cfg, dist, tps, seconds in bench_rows():
+        adopted[name], n = bench_row(name, cfg, dist, tps, seconds, smi,
+                                     torch, dev)
+        launches[mode_of[cfg.detect.mode]] += n
+
+    SCRATCH.mkdir(exist_ok=True)
+    work = tempfile.mkdtemp(prefix="bench_", dir=SCRATCH)
+    try:
+        # (c) the profiler over a harness run, then the CLI
+        prof_dir = pathlib.Path(work) / "profile"
+        cfg = adopted["1k_precise_cityskew"]
+        tester = PerformanceTester(cfg, output_dir=work, backend="fused",
+                                   device=dev)
+        fused_topk.launches = 0
+        m = tester.run_test(BENCH_PROFILE_TPS, BENCH_PROFILE_S, save=False,
+                            profile_dir=str(prof_dir))
+        n_launch = fused_topk.launches
+        launches["survivors"] += n_launch
+        files, events = trace_kernels(prof_dir, "fused_topk_kernel")
+        line = dict(phase="bench", part="profile", row="1k_precise_cityskew",
+                    target_tps=BENCH_PROFILE_TPS, seconds=BENCH_PROFILE_S,
+                    **metrics_line(m, tester), kernel_launches=n_launch,
+                    trace_files=files, trace_kernel_events=events, card=smi)
+        emit(line)
+        if tester.error_count or files != 1 \
+                or n_launch != tester.request_count + 1 \
+                or events != tester.request_count:
+            raise AssertionError(f"bench profile: {line}")
+        emit(dict(phase="bench", part="cli",
+                  **bench_cli(str(pathlib.Path(work) / "cli")), card=smi))
+        # (d) the orchestrated run
+        emit(dict(phase="bench", part="orchestrated",
+                  **bench_orchestrated(str(pathlib.Path(work) / "run")),
+                  card=smi))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit(dict(phase="bench", part="done", launches=launches,
+              seconds=time.perf_counter() - t_phase, card=smi))
+    return launches
+
+
 def by_oid_state(host, torch):
     """The alive objects of a collected state in oid order."""
     from tpu_collide_torch.core.state import FIELDS
@@ -3345,6 +3636,9 @@ def main() -> None:
     serving_launches = sharded_serving_phase(smi, torch, dev,
                                              sharded["adopted"])
 
+    # ---- bench: the load harness ----
+    bench_launches = bench_phase(smi, torch, dev)
+
     # ---- xla_path: the reference-shaped step ----
     cfg1k_p = tt.SystemConfig(num_objects=1000,
                               detect=DetectionConfig(mode="precise"))
@@ -3541,13 +3835,15 @@ def main() -> None:
                               + service_launches[mode]
                               + scenario_launches[mode]
                               + sharded_launches[mode]
-                              + serving_launches[mode]),
+                              + serving_launches[mode]
+                              + bench_launches[mode]),
                     launches_by_path=dict(
                         main_path=launches[mode], scene=scene_launches[mode],
                         service=service_launches[mode],
                         scenario=scenario_launches[mode],
                         sharded=sharded_launches[mode],
-                        sharded_serving=serving_launches[mode]),
+                        sharded_serving=serving_launches[mode],
+                        bench=bench_launches[mode]),
                     max_abs_err=max(err[mode],
                                     scenario["max_abs_err"][mode],
                                     sharded["max_abs_err"][mode]),

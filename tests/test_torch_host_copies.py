@@ -2,9 +2,10 @@
 core/types.py and core/utils.py equal their originals once the package
 prefix is substituted (utils.py without enable_compile_cache, which
 configures JAX), and so do the service's runtime, traffic simulator, stdlib
-server and REST modules; the route core and the alert manager differ from
-theirs only in the lines that read device tensors and import the port's
-modules."""
+server and REST modules and the load harness's generator and monitor; the
+route core and the alert manager differ from theirs only in the lines that
+read device tensors and import the port's modules, and the orchestrated run
+only in its --device."""
 import difflib
 import pathlib
 
@@ -16,7 +17,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 SERVICE_COPIES = ("runtime/__init__.py", "runtime/messaging.py",
                   "runtime/storage.py", "runtime/scheduler.py",
                   "runtime/reliability.py", "runtime/bridge.py",
-                  "sim/traffic.py", "api/stdlib_server.py")
+                  "sim/traffic.py", "api/stdlib_server.py",
+                  "bench/load_generator.py", "bench/monitor.py")
 # copied but for these lines of the JAX module (first, last; an insertion
 # after line n lies in a range that starts at n + 1)
 EDITED_COPIES = {
@@ -33,6 +35,9 @@ EDITED_COPIES = {
     # reads the handlers' request models from them); POST /step's model
     # with the route core's pipelined and burst
     "api/rest.py": ((28, 30), (93, 93)),
+    # the usage line and the port's note in the docstring; --device; the
+    # import of the port's package; CollisionSystem on --device
+    "bench/run_benchmark.py": ((14, 14), (44, 44), (47, 47), (67, 67)),
 }
 
 

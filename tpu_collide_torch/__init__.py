@@ -11,7 +11,10 @@ kernels written in CUDA C++ for Hopper (csrc/); the device scenario modes
 process, migration and halo exchange, the fused kernel per shard, load
 balancing, sharded prediction); the serving surface (api.Scene,
 api.ShardedScene) and the service node (system.py: runtime, REST routes,
-stdlib HTTP server; `python -m tpu_collide_torch.system`). Entry
+stdlib HTTP server; `python -m tpu_collide_torch.system`); the load
+harness (bench/: the step-loop tester, the load generator, the monitor and
+the orchestrated run; `python -m tpu_collide_torch.bench.harness`,
+`python -m tpu_collide_torch.bench.run_benchmark`). Entry
 points run on the CUDA card unless given device='cpu'. The JAX package stays the reference
 the port is checked against; this package imports torch and never jax.
 """
