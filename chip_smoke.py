@@ -136,13 +136,16 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    measured harness runs (BASELINE.md: 1k city skew
                    precise at 1,000 TPS for 10 s, 5k at 5,000 TPS for 5
                    s) and (b) bench.py's flagship sizes (100k-2D and
-                   1M-3D, fast and precise, flat out for 5 s) through
-                   PerformanceTester(backend="fused"): each row certified
-                   on the harness's own fleet and generators, then timed
-                   (req/s, avg / p95 / p99 / max ms, errors, total_risks),
-                   then replayed through make_step: every step's
-                   certificates 0, the replayed risks summing to
-                   total_risks, one detection launch a step; (c) a
+                   1M-3D, fast and precise, flat out for 5 s; the precise
+                   rows' survivor cap sized by probe, as bench.py does)
+                   through PerformanceTester(backend="fused"): each row
+                   certified on the harness's own fleet and generators,
+                   then timed (req/s, avg / p95 / p99 / max ms, errors,
+                   total_risks), then replayed through make_step: every
+                   step's certificates 0, the replayed risks summing to
+                   total_risks (determinism), one detection launch a step;
+                   then the kernel bit-equal to its plain version on the
+                   cell list of the last step; (c) a
                    profiled run whose Chrome trace names fused_topk_kernel
                    once a step, and python -m
                    tpu_collide_torch.bench.harness writing the reference's
@@ -3013,32 +3016,46 @@ METRICS_HEADER = ("timestamp,throughput,avg_latency,p95_latency,p99_latency,"
                   "max_latency,error_rate,cpu_usage,memory_usage")
 
 
+# the bench phase's rows: (name, target TPS, seconds, whether the survivor
+# cap is sized by probe first). The four rows of main_path keep its
+# configurations; the 5k row is the 1k one at 5,000 objects, the 1M-3D
+# precise row bench.py's (bench.py:386-393). bench.py sizes the cap of its
+# two flagship precise rows by probe (probe_cap=True, :358 and :393); the
+# reference's harness runs step at the default cap, as its make_step does.
+BENCH_ROWS = (
+    ("1k_precise_cityskew", 1000, 10.0, False),     # BASELINE.md
+    ("5k_precise_cityskew", 5000, 5.0, False),      # BASELINE.md
+    ("100k_2d_fast", 0, 5.0, False),                # bench.py:337
+    ("100k_2d_precise", 0, 5.0, True),              # bench.py:355-358
+    ("1m_3d_fast", 0, 5.0, False),                  # bench.py:364
+    ("1m_3d_precise", 0, 5.0, True),                # bench.py:386-393
+)
+# steps of the harness's schedule over which a probed row's survivor need
+# is measured (bench.py probes the 45 steps its timed run replays)
+BENCH_PROBE_STEPS = 100
+
+
 def bench_rows():
-    """(name, cfg, distribution, target TPS, seconds) of the bench phase:
-    the reference's two measured harness runs (BASELINE.md) at the harness
-    CLI's configuration, then bench.py's flagship sizes flat out."""
-    import tpu_collide_torch as tt
-    from tpu_collide_torch.core.config import DetectionConfig
-    cfg100k, cfg1m = bench_configs()
-    precise = lambda c: c.replace(detect=dataclasses.replace(
-        c.detect, mode="precise"))
-    harness_cfg = lambda n: tt.SystemConfig(
-        num_objects=n, detect=DetectionConfig(mode="precise"))
-    return (
-        ("1k_precise_cityskew", harness_cfg(1000), "city_skew", 1000, 10.0),
-        ("5k_precise_cityskew", harness_cfg(5000), "city_skew", 5000, 5.0),
-        ("100k_2d_fast", cfg100k, "uniform", 0, 5.0),       # bench.py:337
-        ("100k_2d_precise", precise(cfg100k), "uniform", 0, 5.0),  # :355
-        ("1m_3d_fast", cfg1m, "uniform", 0, 5.0),            # bench.py:364
-        ("1m_3d_precise", precise(cfg1m), "uniform", 0, 5.0),    # :389
-    )
+    """(name, cfg, distribution, target TPS, seconds, probe) of the bench
+    phase: the reference's two measured harness runs (BASELINE.md) at the
+    harness CLI's configuration, then bench.py's flagship sizes flat out,
+    with main_path's configurations where it runs the row."""
+    runs = {name: (cfg, dist) for name, cfg, dist in main_path_runs()}
+    cfg1k, _ = runs["1k_precise_cityskew"]
+    cfg1m, _ = runs["1m_3d_fast"]
+    runs["5k_precise_cityskew"] = (cfg1k.replace(num_objects=5000),
+                                   "city_skew")
+    runs["1m_3d_precise"] = (cfg1m.replace(detect=dataclasses.replace(
+        cfg1m.detect, mode="precise")), "uniform")
+    return tuple((name, *runs[name], tps, seconds, probe)
+                 for name, tps, seconds, probe in BENCH_ROWS)
 
 
 def harness_replay(cfg, dist, n, torch, dev) -> tuple:
     """The first n steps of the harness's schedule (its fleet from seed 0,
     then the warm-up step and the measured steps from seeds 1, 2, ...)
     through make_step(cfg, backend="fused"): (num_risks of each step, worst
-    overflow, worst alert_overflow)."""
+    overflow, worst alert_overflow, the state after the last step)."""
     import tpu_collide_torch as tt
     from tpu_collide_torch.bench.harness import seeded
     from tpu_collide_torch.sim import generate_fleet
@@ -3052,7 +3069,25 @@ def harness_replay(cfg, dist, n, torch, dev) -> tuple:
         risks.append(out.num_risks)
         worst_of = torch.maximum(worst_of, out.overflow)
         worst_ao = torch.maximum(worst_ao, out.alert_overflow)
-    return torch.stack(risks).tolist(), int(worst_of), int(worst_ao)
+    return torch.stack(risks).tolist(), int(worst_of), int(worst_ao), state
+
+
+def harness_survivor_cap(cfg, dist, n, dev) -> int:
+    """bench.py's probe_cap (bench.py:187-196) on the harness's schedule:
+    kernels/tune.suggest_survivor_cap of the positions after each of the
+    first n steps (the fleet from seed 0, physics from generators seeded
+    1, 2, ...), the largest. The rule rounds up, so the largest of the
+    suggestions is the suggestion for the largest need."""
+    from tpu_collide_torch.bench.harness import seeded
+    from tpu_collide_torch.kernels.tune import suggest_survivor_cap
+    from tpu_collide_torch.sim import generate_fleet
+    from tpu_collide_torch.sim.integrator import integrate
+    state = generate_fleet(seeded(0, dev), cfg, distribution=dist)
+    cap = 0
+    for i in range(n):
+        state = integrate(state, cfg, seeded(1 + i, dev))
+        cap = max(cap, suggest_survivor_cap(cfg, state))
+    return cap
 
 
 def metrics_line(m, tester) -> dict:
@@ -3063,20 +3098,33 @@ def metrics_line(m, tester) -> dict:
                 total_risks=tester.total_risks)
 
 
-def bench_row(name, cfg, dist, tps, seconds, smi, torch, dev) -> tuple:
-    """One row: certified() on the harness's fleet and generators, the
-    timed PerformanceTester(backend="fused") run, then its steps replayed
-    through make_step. Fails unless every replayed step has certificates
-    0, the replayed measured steps' num_risks sum to total_risks, no step
-    failed, and the run launched the detection kernel once a step (the
-    warm-up included). Returns (the configuration adopted, launches)."""
+def bench_row(name, cfg, dist, tps, seconds, probe, smi, torch,
+              dev) -> tuple:
+    """One row: the survivor cap sized by probe where `probe`, certified()
+    on the harness's fleet and generators, the timed
+    PerformanceTester(backend="fused") run, then its steps replayed through
+    make_step, and the kernel held to its plain version on the cell list of
+    the last step. Fails unless every replayed step has certificates 0, the
+    replayed measured steps' num_risks sum to total_risks (the run is
+    deterministic), no step failed, the run launched the detection kernel
+    once a step (the warm-up included), and the kernel's slots equal the
+    plain version's bit for bit. Returns (the configuration adopted,
+    launches, the kernel's largest key error against the plain version)."""
     from tpu_collide_torch.bench.harness import PerformanceTester
-    from tpu_collide_torch.kernels.fused_detect import fused_topk
+    from tpu_collide_torch.kernels.cell_list import build_cell_list
+    from tpu_collide_torch.kernels.fused_detect import (fused_topk,
+                                                        fused_topk_plain,
+                                                        slot_count)
     t0 = time.perf_counter()
+    default_cap = cfg.survivor_cap
+    if probe:
+        cfg = cfg.replace(detect=dataclasses.replace(
+            cfg.detect, precise_survivor_cap=harness_survivor_cap(
+                cfg, dist, BENCH_PROBE_STEPS, dev)))
 
     def drive(c):
-        _, worst_of, worst_ao = harness_replay(c, dist, BENCH_CERT_STEPS,
-                                               torch, dev)
+        _, worst_of, worst_ao, _ = harness_replay(c, dist, BENCH_CERT_STEPS,
+                                                  torch, dev)
         return max(worst_of, worst_ao), None
     cfg, worst, _, attempts = certified(cfg, drive)
     if worst:
@@ -3088,7 +3136,14 @@ def bench_row(name, cfg, dist, tps, seconds, smi, torch, dev) -> tuple:
     m = tester.run_test(tps, seconds, save=False)
     launched = fused_topk.launches
     steps = tester.request_count + 1
-    risks, worst_of, worst_ao = harness_replay(cfg, dist, steps, torch, dev)
+    risks, worst_of, worst_ao, state = harness_replay(cfg, dist, steps,
+                                                      torch, dev)
+    # the kernel against its plain version at the row's own shapes: the
+    # cell list that the last step's detection saw
+    mode = {"fast": "hits", "precise": "survivors"}[cfg.detect.mode]
+    cl = build_cell_list(state, cfg)
+    got, want = fused_topk(cl, cfg, mode), fused_topk_plain(cl, cfg, mode)
+    vs_plain = compare_slots(got, want, slot_count(cfg, mode), torch)
     line = dict(phase="bench", row=name, n=cfg.num_objects,
                 distribution=dist, mode=cfg.detect.mode, target_tps=tps,
                 seconds=seconds, **metrics_line(m, tester),
@@ -3098,6 +3153,8 @@ def bench_row(name, cfg, dist, tps, seconds, smi, torch, dev) -> tuple:
                 max_alerts_per_object=cfg.alerts.max_alerts_per_object,
                 survivor_k=cfg.detect.survivor_k,
                 survivor_cap=cfg.survivor_cap,
+                survivor_cap_probed=probe, default_survivor_cap=default_cap,
+                kernel_vs_plain=vs_plain,
                 reference_cpu_record=REFERENCE_CPU.get(name),
                 wall_s=time.perf_counter() - t0, card=smi)
     emit(line)
@@ -3105,7 +3162,7 @@ def bench_row(name, cfg, dist, tps, seconds, smi, torch, dev) -> tuple:
             or line["replay_total_risks"] != tester.total_risks \
             or launched != steps:
         raise AssertionError(f"bench {name}: {line}")
-    return cfg, launched
+    return cfg, launched, vs_plain["max_abs_err"]
 
 
 def trace_kernels(directory, name) -> tuple:
@@ -3196,14 +3253,15 @@ def bench_orchestrated(work) -> dict:
     return line
 
 
-def bench_phase(smi, torch, dev) -> dict:
+def bench_phase(smi, torch, dev) -> tuple:
     """The load harness on the card: (a) the reference's measured harness
     runs and (b) bench.py's flagship sizes through
-    PerformanceTester(backend="fused"), each certified, timed and replayed
-    (bench_row); (c) a profiled run whose trace names the detection kernel,
+    PerformanceTester(backend="fused"), each certified, timed, replayed and
+    held to the plain version (bench_row); (c) a profiled run whose trace names the detection kernel,
     and the harness CLI as a user runs it; (d) the orchestrated run.
-    Emits one line per part; returns the detection kernel's launches on the
-    path by mode."""
+    Emits one line per part; returns (the detection kernel's launches on
+    the path by mode, its largest key error against the plain version by
+    mode)."""
     import shutil
     import tempfile
     from tpu_collide_torch.bench.harness import PerformanceTester
@@ -3211,11 +3269,14 @@ def bench_phase(smi, torch, dev) -> dict:
     t_phase = time.perf_counter()
     mode_of = {"fast": "hits", "precise": "survivors"}
     launches = {"hits": 0, "survivors": 0}
+    err = {"hits": 0.0, "survivors": 0.0}
     adopted = {}
-    for name, cfg, dist, tps, seconds in bench_rows():
-        adopted[name], n = bench_row(name, cfg, dist, tps, seconds, smi,
-                                     torch, dev)
-        launches[mode_of[cfg.detect.mode]] += n
+    for name, cfg, dist, tps, seconds, probe in bench_rows():
+        mode = mode_of[cfg.detect.mode]
+        adopted[name], n, e = bench_row(name, cfg, dist, tps, seconds, probe,
+                                        smi, torch, dev)
+        launches[mode] += n
+        err[mode] = max(err[mode], e)
 
     SCRATCH.mkdir(exist_ok=True)
     work = tempfile.mkdtemp(prefix="bench_", dir=SCRATCH)
@@ -3249,8 +3310,9 @@ def bench_phase(smi, torch, dev) -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     emit(dict(phase="bench", part="done", launches=launches,
+              max_abs_err=err,
               seconds=time.perf_counter() - t_phase, card=smi))
-    return launches
+    return launches, err
 
 
 def by_oid_state(host, torch):
@@ -3637,7 +3699,7 @@ def main() -> None:
                                              sharded["adopted"])
 
     # ---- bench: the load harness ----
-    bench_launches = bench_phase(smi, torch, dev)
+    bench_launches, bench_err = bench_phase(smi, torch, dev)
 
     # ---- xla_path: the reference-shaped step ----
     cfg1k_p = tt.SystemConfig(num_objects=1000,
@@ -3846,7 +3908,8 @@ def main() -> None:
                         bench=bench_launches[mode]),
                     max_abs_err=max(err[mode],
                                     scenario["max_abs_err"][mode],
-                                    sharded["max_abs_err"][mode]),
+                                    sharded["max_abs_err"][mode],
+                                    bench_err[mode]),
                     ms=kernel_ms[cfg_name][0],
                     plain_ms=kernel_ms[cfg_name][1],
                     bound_ms=bounds[cfg_name]["bound_ms"],
