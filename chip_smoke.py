@@ -141,11 +141,12 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    through PerformanceTester(backend="fused"): each row
                    certified on the harness's own fleet and generators,
                    then timed (req/s, avg / p95 / p99 / max ms, errors,
-                   total_risks), then replayed through make_step: every
-                   step's certificates 0, the replayed risks summing to
-                   total_risks (determinism), one detection launch a step;
-                   then the kernel bit-equal to its plain version on the
-                   cell list of the last step; (c) a
+                   total_risks) through a recording step: every step's
+                   certificates 0, one detection launch a step, the first
+                   20 steps' risks equal to the certification replay and
+                   the last 10 equal to a replay from the recorded state
+                   (determinism); then the kernel bit-equal to its plain
+                   version on the cell list of the last step; (c) a
                    profiled run whose Chrome trace names fused_topk_kernel
                    once a step, and python -m
                    tpu_collide_torch.bench.harness writing the reference's
@@ -153,6 +154,23 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    tpu_collide_torch.bench.run_benchmark (benchmark.sh's
                    settings, 10 s): no load error, simulator updates, a
                    tenth of the live objects killed, a monitor CSV
+  scale            the twins of the JAX package's scale tools
+                   (scale_phase): tools/torch_scale_bench.py's 10M-3D rows
+                   (20 x 20 x 1 km, 50 m cells) fast (9 steps in chunks of
+                   3) and precise (6 in chunks of 2, the survivor cap by
+                   probe), each certified by the twin's adopt rule, every
+                   timed step's certificates 0, the kernel bit-equal to its
+                   plain version on the last state's cell list (ms, device
+                   ms, bound); its 1M-3D one-shard sharded row in turns with
+                   the unsharded 1M-3D step, conserved and certified, the
+                   kernel on the shard's cell list; then
+                   tools/torch_big_mesh_dryrun.py at 65,536 objects on 8x2
+                   and 8x8 shards, backends xla and fused (--steps 2), each
+                   conserved, overflow 0, risks and alert sets equal to the
+                   single-device step's, the fused grids under
+                   torch.profiler (launches, idle share), and the kernel on
+                   an inner 8x8 shard's cell list of owned rows and marked
+                   halo mirrors
   xla_path         make_step(cfg, backend="xla") at bench.py's XLA rows
                    (1k precise and 1k fast, city skew) and
                    make_step(cfg100k, chunk_size=8192) on a uniform 100k
@@ -174,9 +192,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 
 The line before the last lists the kernels with their launches (the
 detection kernels' on main_path, scene, service, scenario, sharded,
-sharded_serving and bench, the predict kernel's on predict_path, scene and
-sharded_serving, the co-sort's on cosort_vs_plain; the
-sum, and each path's in launches_by_path), their times and their bounds;
+sharded_serving, bench and scale, the predict kernel's on predict_path,
+scene and sharded_serving, the co-sort's on cosort_vs_plain; the sum, and
+each path's in launches_by_path), their times and their bounds;
 the last line
 is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -269,6 +287,24 @@ def median_ms(fn, torch, repeats=REPEATS) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def graph_ms(run, torch, launches=10) -> float:
+    """Device ms per call of `run`: `launches` calls captured in a CUDA
+    graph and replayed (median of REPEATS replays between CUDA events), so
+    that the host's share is left out (tools/torch_detect_kernel.py's
+    measure)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kept = [run() for _ in range(launches)]
+    ms = median_ms(graph.replay, torch) / launches
+    del kept, graph
+    return ms
 
 
 def compare_pred_slots(got, want, k, torch) -> dict:
@@ -1801,6 +1837,8 @@ def scenario_phase(smi, torch, dev) -> dict:
                   mode=mode, n=cl.n, k=k, **res,
                   largest_emitted=int(got.emitted.max()), **walk_edges(cl),
                   ms=median_ms(lambda: fused_topk(cl, cfg, mode), torch),
+                  device_ms=graph_ms(lambda: fused_topk(cl, cfg, mode),
+                                     torch),
                   plain_ms=median_ms(lambda: fused_topk_plain(cl, cfg, mode),
                                      torch, repeats=3),
                   kernel_bound=detect_bound(cl, cfg, mode, got, torch),
@@ -2178,14 +2216,16 @@ def sharded_phase(smi, torch, dev) -> dict:
         b = detect_bound(cl, cfg, mode, got, torch)
         kernel[mode] = dict(
             ms=median_ms(lambda: fused_topk(cl, cfg, mode), torch),
+            device_ms=graph_ms(lambda: fused_topk(cl, cfg, mode), torch),
             plain_ms=median_ms(lambda: fused_topk_plain(cl, cfg, mode),
                                torch, repeats=3),
             bound_ms=b["bound_ms"], bound_by=b["bound_by"])
         emit(dict(phase="sharded", part="kernel_vs_plain", mode=mode,
                   shard=list(mesh.coords(s)), n=cl.n,
                   owned=int(cl.own.sum()), mirrors=mirrors[s], k=k, **res,
-                  ms=kernel[mode]["ms"], plain_ms=kernel[mode]["plain_ms"],
-                  kernel_bound=b, card=smi))
+                  ms=kernel[mode]["ms"], device_ms=kernel[mode]["device_ms"],
+                  plain_ms=kernel[mode]["plain_ms"], kernel_bound=b,
+                  card=smi))
 
     # ---- (b) against the single-device fused step ----
     for det_mode, cfg in adopted.items():
@@ -2572,7 +2612,7 @@ def predict_kernel_on_shard(cfg, mesh, states, hists, smi, torch) -> dict:
     line = dict(shard=list(mesh.coords(s)), rows=cl.n,
                 owned=int(cl.own.sum()), mirrors=mirrors[s],
                 offsets=offs.numel(), k=8, sub_steps=sub, **res,
-                ms=median_ms(pk, torch),
+                ms=median_ms(pk, torch), device_ms=graph_ms(pk, torch),
                 plain_ms=median_ms(pp, torch, repeats=3),
                 kernel_bound=predict_bound(cl, cfg, offs, got, sub, torch))
     predict_topk.launches = before
@@ -2986,8 +3026,12 @@ def sharded_serving_phase(smi, torch, dev, adopted) -> dict:
 # ---- bench: the load harness (tpu_collide_torch/bench/) -------------------
 
 # steps of the harness's schedule (the warm-up and the first measured steps)
-# that certified() replays before a row's timed run
+# that certified() replays before a row's timed run; the timed run's first
+# steps are held to that replay
 BENCH_CERT_STEPS = 20
+# the timed run's last steps, replayed from the state the run stepped them
+# from
+BENCH_REPLAY_TAIL = 10
 # the reference's records of its two harness runs (BASELINE.md), on a
 # single-process CPU: printed beside the rows, not targets
 REFERENCE_CPU = {
@@ -3098,18 +3142,70 @@ def metrics_line(m, tester) -> dict:
                 total_risks=tester.total_risks)
 
 
+class StepRecorder:
+    """A stand-in for bench/harness.make_step during a timed run: each step
+    function it makes runs the real step and keeps references, with no
+    launch and no host read inside the harness's window, to each step's
+    overflow, alert_overflow and num_risks (read after the run by
+    counters()), the input state of the last BENCH_REPLAY_TAIL steps and
+    the last output state, and counts the steps."""
+
+    def __init__(self, real):
+        import collections
+        self.real = real
+        self.outs, self.last, self.calls = [], None, 0
+        self.inputs = collections.deque(maxlen=BENCH_REPLAY_TAIL)
+
+    def __call__(self, cfg, **kw):
+        stepf = self.real(cfg, **kw)
+
+        def step(state, generator):
+            self.inputs.append(state)
+            state, out = stepf(state, generator)
+            self.outs.append((out.overflow, out.alert_overflow,
+                              out.num_risks))
+            self.last = state
+            self.calls += 1
+            return state, out
+        return step
+
+    def counters(self, torch) -> tuple:
+        """(the worst overflow, the worst alert_overflow, each step's
+        num_risks) of the recorded steps, in one host read."""
+        rows = torch.stack([torch.stack(o) for o in self.outs]).tolist()
+        return (max(r[0] for r in rows), max(r[1] for r in rows),
+                [r[2] for r in rows])
+
+
+def replay_from(cfg, state, first, n, dev) -> list:
+    """num_risks of n steps of make_step(cfg, backend="fused") from `state`,
+    the step with call index i (0: the warm-up) drawing from a generator
+    seeded 1 + i, as the harness's steps do, starting at call `first`."""
+    import tpu_collide_torch as tt
+    from tpu_collide_torch.bench.harness import seeded
+    step = tt.make_step(cfg, backend="fused", device=dev)
+    risks = []
+    for i in range(first, first + n):
+        state, out = step(state, seeded(1 + i, dev))
+        risks.append(out.num_risks)
+    return [int(r) for r in risks]
+
+
 def bench_row(name, cfg, dist, tps, seconds, probe, smi, torch,
               dev) -> tuple:
     """One row: the survivor cap sized by probe where `probe`, certified()
-    on the harness's fleet and generators, the timed
-    PerformanceTester(backend="fused") run, then its steps replayed through
-    make_step, and the kernel held to its plain version on the cell list of
-    the last step. Fails unless every replayed step has certificates 0, the
-    replayed measured steps' num_risks sum to total_risks (the run is
-    deterministic), no step failed, the run launched the detection kernel
+    on the harness's fleet and generators (which replays its first
+    BENCH_CERT_STEPS steps), the timed PerformanceTester(backend="fused")
+    run through a StepRecorder, then the kernel held to its plain version
+    on the cell list of the last step. Fails unless every step of the run
+    has certificates 0, its first steps' num_risks equal the certification
+    replay's and its last BENCH_REPLAY_TAIL steps' equal a replay from the
+    recorded state (the run is deterministic), the recorded risks sum to
+    total_risks, no step failed, the run launched the detection kernel
     once a step (the warm-up included), and the kernel's slots equal the
     plain version's bit for bit. Returns (the configuration adopted,
     launches, the kernel's largest key error against the plain version)."""
+    from tpu_collide_torch.bench import harness
     from tpu_collide_torch.bench.harness import PerformanceTester
     from tpu_collide_torch.kernels.cell_list import build_cell_list
     from tpu_collide_torch.kernels.fused_detect import (fused_topk,
@@ -3123,31 +3219,41 @@ def bench_row(name, cfg, dist, tps, seconds, probe, smi, torch,
                 cfg, dist, BENCH_PROBE_STEPS, dev)))
 
     def drive(c):
-        _, worst_of, worst_ao, _ = harness_replay(c, dist, BENCH_CERT_STEPS,
-                                                  torch, dev)
-        return max(worst_of, worst_ao), None
-    cfg, worst, _, attempts = certified(cfg, drive)
+        risks, worst_of, worst_ao, _ = harness_replay(c, dist,
+                                                      BENCH_CERT_STEPS,
+                                                      torch, dev)
+        return max(worst_of, worst_ao), risks
+    cfg, worst, cert_risks, attempts = certified(cfg, drive)
     if worst:
         raise AssertionError(f"bench {name}: certificate {worst} after "
                              f"{attempts} attempts")
     tester = PerformanceTester(cfg, backend="fused", distribution=dist,
                                device=dev)
+    rec = StepRecorder(harness.make_step)
+    harness.make_step = rec
     fused_topk.launches = 0
-    m = tester.run_test(tps, seconds, save=False)
+    try:
+        m = tester.run_test(tps, seconds, save=False)
+    finally:
+        harness.make_step = rec.real
     launched = fused_topk.launches
     steps = tester.request_count + 1
-    risks, worst_of, worst_ao, state = harness_replay(cfg, dist, steps,
-                                                      torch, dev)
+    worst_of, worst_ao, risks = rec.counters(torch)
+    tail, prefix = len(rec.inputs), min(len(cert_risks), steps)
+    replayed = replay_from(cfg, rec.inputs[0], steps - tail, tail, dev)
     # the kernel against its plain version at the row's own shapes: the
     # cell list that the last step's detection saw
     mode = {"fast": "hits", "precise": "survivors"}[cfg.detect.mode]
-    cl = build_cell_list(state, cfg)
+    cl = build_cell_list(rec.last, cfg)
     got, want = fused_topk(cl, cfg, mode), fused_topk_plain(cl, cfg, mode)
     vs_plain = compare_slots(got, want, slot_count(cfg, mode), torch)
     line = dict(phase="bench", row=name, n=cfg.num_objects,
                 distribution=dist, mode=cfg.detect.mode, target_tps=tps,
                 seconds=seconds, **metrics_line(m, tester),
-                replay_total_risks=sum(risks[1:]), replayed_steps=steps,
+                recorded_total_risks=sum(risks[1:]), recorded_steps=steps,
+                replayed_prefix_steps=prefix, replayed_tail_steps=tail,
+                prefix_equal=risks[:prefix] == cert_risks[:prefix],
+                tail_equal=risks[steps - tail:] == replayed,
                 worst_overflow=worst_of, worst_alert_overflow=worst_ao,
                 kernel_launches=launched, attempts=attempts,
                 max_alerts_per_object=cfg.alerts.max_alerts_per_object,
@@ -3159,8 +3265,9 @@ def bench_row(name, cfg, dist, tps, seconds, probe, smi, torch,
                 wall_s=time.perf_counter() - t0, card=smi)
     emit(line)
     if tester.error_count or worst_of or worst_ao \
-            or line["replay_total_risks"] != tester.total_risks \
-            or launched != steps:
+            or line["recorded_total_risks"] != tester.total_risks \
+            or not (line["prefix_equal"] and line["tail_equal"]) \
+            or launched != steps or rec.calls != steps:
         raise AssertionError(f"bench {name}: {line}")
     return cfg, launched, vs_plain["max_abs_err"]
 
@@ -3315,6 +3422,225 @@ def bench_phase(smi, torch, dev) -> tuple:
     return launches, err
 
 
+# ---- scale: the twins of tools/scale_bench.py and tools/big_mesh_dryrun.py --
+
+# tools/scale_bench.py's fused rows (:133-138): (tag, mode, steps, chunk,
+# survivor cap by probe)
+SCALE_ROWS = (("10m_3d_fast", "fast", 9, 3, False),
+              ("10m_3d_precise", "precise", 6, 2, True))
+# steps of each 10M row under torch.profiler
+SCALE_PROFILE_STEPS = 2
+# run_sharded_1m's steps and chunk (:80), and the rounds in which it runs in
+# turns with the unsharded 1M-3D step
+SCALE_SHARDED_STEPS, SCALE_SHARDED_CHUNK, SCALE_ROUNDS = 12, 4, 2
+# tools/big_mesh_dryrun.py's grids at its default N and --steps 2, both
+# backends; the profiled steps of each fused grid
+BIG_MESH_GRIDS = ((16, "8x2"), (64, "8x8"))
+BIG_MESH_N, BIG_MESH_STEPS, BIG_MESH_PROFILE_STEPS = 65536, 2, 2
+
+
+def load_tool(name):
+    """tools/<name>.py as a module."""
+    import importlib.util
+    import sys
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def kernel_at(name, cl, cfg, mode, smi, torch, **extra) -> dict:
+    """The detection kernel on one cell list of a scale run: bit-equal to
+    its plain version (compare_slots), its CUDA-event ms (median of
+    REPEATS), its device ms (graph_ms), the plain version's ms and the
+    bound; emits the line and returns it."""
+    from tpu_collide_torch.kernels.fused_detect import (fused_topk,
+                                                        fused_topk_plain,
+                                                        slot_count)
+    k = slot_count(cfg, mode)
+    got, want = fused_topk(cl, cfg, mode), fused_topk_plain(cl, cfg, mode)
+    torch.cuda.synchronize()
+    res = compare_slots(got, want, k, torch)
+    b = detect_bound(cl, cfg, mode, got, torch)
+    del got, want
+    line = dict(phase="scale", part="kernel_vs_plain", cells=name,
+                mode=mode, n=cl.n, alive=int(cl.n_alive),
+                owned=int((cl.own & cl.alive).sum()), k=k, **res,
+                ms=median_ms(lambda: fused_topk(cl, cfg, mode), torch),
+                device_ms=graph_ms(lambda: fused_topk(cl, cfg, mode),
+                                   torch),
+                plain_ms=median_ms(lambda: fused_topk_plain(cl, cfg, mode),
+                                   torch, repeats=1),
+                bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                kernel_bound=b, **extra, card=smi)
+    emit(line)
+    return line
+
+
+def scale_phase(smi, torch, dev) -> dict:
+    """The port's twins of the JAX package's scale tools on the card:
+    (a) tools/torch_scale_bench.py's 10M-3D rows, fast and precise (the
+    survivor cap by probe), each certified by the twin's adopt rule, its
+    kernel bit-equal to the plain version on the last stepped state's cell
+    list; (b) its 1M-3D one-shard sharded row in turns with the unsharded
+    1M-3D step, conserved and certified, the kernel on the shard's cell
+    list; (c) tools/torch_big_mesh_dryrun.py at 64k on 8x2 and 8x8 shards,
+    backends xla and fused, each passing the tool's asserts, the fused
+    grids profiled, and the kernel on an inner 8x8 shard's halo-extended
+    cell list. Emits one line per part; returns the detection kernel's
+    launches on the path by mode and its largest key error against the
+    plain version by mode."""
+    import tpu_collide_torch as tt
+    from tpu_collide_torch.kernels.cell_list import build_cell_list
+    from tpu_collide_torch.kernels.fused_detect import fused_topk
+    from tpu_collide_torch.shard import shard_generators
+    from tpu_collide_torch.shard.step import _default_walls, _halo_extend
+    tsb = load_tool("torch_scale_bench")
+    tbm = load_tool("torch_big_mesh_dryrun")
+    t_phase = time.perf_counter()
+    mode_of = {"fast": "hits", "precise": "survivors"}
+    launches = {"hits": 0, "survivors": 0}
+    err = {"hits": 0.0, "survivors": 0.0}
+
+    # ---- (a) 10M-3D, fast and precise ----
+    for tag, det_mode, steps, chunk, probe in SCALE_ROWS:
+        t0 = time.perf_counter()
+        mode = mode_of[det_mode]
+        cfg = tsb.cfg_10m(det_mode)
+        torch.cuda.reset_peak_memory_stats(dev)
+        fused_topk.launches = 0
+        res = tsb.fused_scan(cfg, steps=steps, chunk=chunk, probe_cap=probe,
+                             device=dev)
+        torch.cuda.synchronize()
+        n_launch = fused_topk.launches
+        _, _, out, worst_of, worst_ao, used, info = res
+        row = tsb.fused_row(tag, cfg, res, smi)
+        per_try = len(tsb.schedule(steps, chunk)) * chunk + 1
+        probed = (per_try - 1) * (info.probed_cap is not None)
+        check_output(out, used, torch)
+        line = dict(phase="scale", part="scale_bench", **row,
+                    kernel_launches=n_launch,
+                    kernel_launches_expected=len(info.tries) * per_try
+                    + probed, num_alive=int(out.num_alive),
+                    peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30,
+                    seconds=time.perf_counter() - t0)
+        emit(line)
+        if worst_of or worst_ao or line["num_alive"] != cfg.num_objects \
+                or n_launch != line["kernel_launches_expected"]:
+            raise AssertionError(f"scale {tag}: {line}")
+        launches[mode] += n_launch
+        cl = build_cell_list(info.state, used)
+        err[mode] = max(err[mode], kernel_at(tag, cl, used, mode, smi,
+                                             torch)["max_abs_err"])
+        del cl
+        # where the step's time goes at 10M: one more step from the last
+        # state, under torch.profiler
+        step = tt.make_step(used, backend="fused", device=dev)
+        gen = torch.Generator(device=dev).manual_seed(100)
+        fused_topk.launches = 0
+        emit(dict(phase="scale", part="step_profile", config=tag,
+                  profile=device_profile(lambda: step(info.state, gen),
+                                         SCALE_PROFILE_STEPS, torch),
+                  card=smi))
+        launches[mode] += fused_topk.launches
+        del info, res, out
+
+    # ---- (b) 1M-3D on the one-shard mesh, in turns with the unsharded ----
+    cfg1 = tsb.sharded_1m_config()
+    steps, chunk = SCALE_SHARDED_STEPS, SCALE_SHARDED_CHUNK
+    per_run = len(tsb.schedule(steps, chunk)) * chunk
+    rounds = []
+    for r in range(SCALE_ROUNDS):
+        fused_topk.launches = 0
+        res, states, mesh = tsb.sharded_scan(cfg1, steps, chunk, device=dev)
+        torch.cuda.synchronize()
+        n_sh = fused_topk.launches
+        row = tsb.sharded_row(cfg1, res, smi)
+        fused_topk.launches = 0
+        un = tsb.fused_scan(tsb.cfg_1m(), steps=steps, chunk=chunk,
+                            device=dev)
+        torch.cuda.synchronize()
+        n_un = fused_topk.launches
+        rounds.append(dict(sharded=row, sharded_launches=n_sh,
+                           unsharded=tsb.fused_row("1m_3d_fast", tsb.cfg_1m(),
+                                                   un, smi),
+                           unsharded_launches=n_un))
+        if not row["conserved"] or row["overflow"] or row["aoflow"] \
+                or n_sh != per_run or un[3] or un[4] \
+                or n_un != len(un[6].tries) * (per_run + 1):
+            raise AssertionError(f"scale 1m_sharded_fused_1dev: "
+                                 f"{rounds[-1]}")
+        launches["hits"] += n_sh + n_un
+    emit(dict(phase="scale", part="sharded_1m", rounds=rounds,
+              steps=steps, chunk=chunk, card=smi))
+    ext, _ = _halo_extend(states, cfg1, mesh, _default_walls(cfg1, mesh),
+                          mark=True)
+    cl = build_cell_list(ext[0], cfg1)
+    err["hits"] = max(err["hits"], kernel_at(
+        "1m_sharded_fused_1dev", cl, cfg1, "hits", smi,
+        torch)["max_abs_err"])
+    del ext, cl, states
+
+    # ---- (c) the big mesh at 64k: 8x2 and 8x8, both backends ----
+    for devices, grid in BIG_MESH_GRIDS:
+        for backend in ("xla", "fused"):
+            t0 = time.perf_counter()
+            cfg = tbm.deployment(BIG_MESH_N,
+                                 *(int(v) for v in grid.split("x")))
+            _, mesh, st, stepf = parts = tbm.setup(cfg, backend, dev)
+            fused_topk.launches = 0
+            res = tbm.dryrun(devices, grid, BIG_MESH_N, backend,
+                             BIG_MESH_STEPS, device=dev, cfg=cfg,
+                             parts=parts)
+            torch.cuda.synchronize()
+            n_launch = fused_topk.launches
+            line = dict(phase="scale", part="big_mesh", **res,
+                        kernel_launches=n_launch,
+                        seconds=time.perf_counter() - t0, card=smi)
+            want = (1 + BIG_MESH_STEPS) * devices * (backend == "fused")
+            compared = "alert_set_equal" in res
+            if backend == "fused":
+                gens = lambda: shard_generators(mesh, 1)
+                fused_topk.launches = 0
+                line["profile"] = device_profile(lambda: stepf(st, gens()),
+                                                 BIG_MESH_PROFILE_STEPS,
+                                                 torch)
+                n_prof = fused_topk.launches
+                launches["hits"] += n_launch + n_prof
+                if n_prof != BIG_MESH_PROFILE_STEPS * devices:
+                    raise AssertionError(f"big mesh {grid}: {n_prof} "
+                                         "launches under the profiler")
+            emit(line)
+            if n_launch != want or not res["conserved"] \
+                    or res["alive"] != BIG_MESH_N or res["overflow"] \
+                    or not res["risk_parity"] \
+                    or (compared and not res["alert_set_equal"]):
+                raise AssertionError(f"big mesh {grid} {backend}: {line}")
+            if backend == "fused" and grid == "8x8":
+                # an inner shard (no edge of the world), the one with the
+                # most halo mirrors
+                st1, _, _ = stepf(st, gens())
+                ext, _ = _halo_extend(st1, cfg, mesh,
+                                      _default_walls(cfg, mesh), mark=True)
+                inner = [i for i in range(mesh.size)
+                         if all(0 < c < n - 1 for c, n in
+                                zip(mesh.coords(i), mesh.shape))]
+                lists = {i: build_cell_list(ext[i], cfg) for i in inner}
+                s = max(inner, key=lambda i: int(
+                    (lists[i].alive & ~lists[i].own).sum()))
+                cl = lists[s]
+                err["hits"] = max(err["hits"], kernel_at(
+                    "64k_8x8_shard", cl, cfg, "hits", smi, torch,
+                    shard=list(mesh.coords(s)),
+                    mirrors=int((cl.alive & ~cl.own).sum()))["max_abs_err"])
+    emit(dict(phase="scale", part="done", launches=launches,
+              max_abs_err=err, seconds=time.perf_counter() - t_phase,
+              card=smi))
+    return dict(launches=launches, max_abs_err=err)
+
+
 def by_oid_state(host, torch):
     """The alive objects of a collected state in oid order."""
     from tpu_collide_torch.core.state import FIELDS
@@ -3331,6 +3657,7 @@ def main() -> None:
                          "(torch.cuda.is_available() is False)")
     import tpu_collide_torch as tt
     from tpu_collide_torch.core.config import DetectionConfig, WorldConfig
+    from tpu_collide_torch.core.device import card
     from tpu_collide_torch.core.state import conform_fleet, state_from_numpy
     from tpu_collide_torch.engine import detect_and_alerts_fused
     from tpu_collide_torch.kernels import _build
@@ -3364,10 +3691,7 @@ def main() -> None:
     torch.cuda.set_device(dev)
 
     # ---- device ----
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = card(dev)
     print(smi, flush=True)
     card = torch.cuda.get_device_name(0)
     emit(dict(phase="device", name=card, count=torch.cuda.device_count(),
@@ -3391,7 +3715,8 @@ def main() -> None:
     # kernels/fused_detect.launch_plan mirrors it
     plans = {}
     for n, k in ((1, 1), (1000, 8), (6000, 32), (20_000, 8), (33_792, 8),
-                 (67_584, 8), (100_000, 8), (100_000, 12), (1_000_000, 4)):
+                 (67_584, 8), (100_000, 8), (100_000, 12), (1_000_000, 4),
+                 (10_000_000, 8)):
         out = (ctypes.c_int * 5)()
         _build.load_library().tc_fused_topk_plan(n, k, out)
         want = detect_plan(n, k)
@@ -3634,6 +3959,9 @@ def main() -> None:
                     lambda: predict_topk(cl, cfg, offs, K_SLOTS, SUB_STEPS),
                     torch),
                 kernel_ms_first_last=pred_ms[0],
+                kernel_device_ms_first_last=graph_ms(
+                    lambda: predict_topk(cl, cfg, ends, K_SLOTS, SUB_STEPS),
+                    torch),
                 plain_ms_first_last=pred_ms[1],
                 kernel_bound_first_last=pred_bound,
                 kernel_vs_plain_first_last=res,
@@ -3700,6 +4028,9 @@ def main() -> None:
 
     # ---- bench: the load harness ----
     bench_launches, bench_err = bench_phase(smi, torch, dev)
+
+    # ---- scale: 10M-3D, the one-shard 1M mesh, 64k on 16 and 64 shards --
+    scale = scale_phase(smi, torch, dev)
 
     # ---- xla_path: the reference-shaped step ----
     cfg1k_p = tt.SystemConfig(num_objects=1000,
@@ -3898,18 +4229,21 @@ def main() -> None:
                               + scenario_launches[mode]
                               + sharded_launches[mode]
                               + serving_launches[mode]
-                              + bench_launches[mode]),
+                              + bench_launches[mode]
+                              + scale["launches"][mode]),
                     launches_by_path=dict(
                         main_path=launches[mode], scene=scene_launches[mode],
                         service=service_launches[mode],
                         scenario=scenario_launches[mode],
                         sharded=sharded_launches[mode],
                         sharded_serving=serving_launches[mode],
-                        bench=bench_launches[mode]),
+                        bench=bench_launches[mode],
+                        scale=scale["launches"][mode]),
                     max_abs_err=max(err[mode],
                                     scenario["max_abs_err"][mode],
                                     sharded["max_abs_err"][mode],
-                                    bench_err[mode]),
+                                    bench_err[mode],
+                                    scale["max_abs_err"][mode]),
                     ms=kernel_ms[cfg_name][0],
                     plain_ms=kernel_ms[cfg_name][1],
                     bound_ms=bounds[cfg_name]["bound_ms"],

@@ -97,3 +97,51 @@ def assert_alerts_equal(want, got):
         np.testing.assert_allclose(got[k][:4], want[k][:4], rtol=1e-5,
                                    atol=1e-5, err_msg=str(k))
         assert got[k][4] == want[k][4], k
+
+
+# ---- the tools/ twins -------------------------------------------------------
+
+def jax_uniform_fleet(cfg):
+    """The JAX package's uniform fleet of key 0 for the port's config `cfg`,
+    as numpy arrays."""
+    import jax
+    from tpu_collide.core.config import SystemConfig
+    from tpu_collide.sim import generate_fleet
+    fleet = generate_fleet(jax.random.key(0),
+                           SystemConfig.from_json(cfg.to_json()),
+                           distribution="uniform")
+    return {f: np.asarray(getattr(fleet, f)) for f in FIELDS}
+
+
+def jax_state_of(d):
+    return jax_state_from_numpy(d["pos"], d["vel"], d["acc"], d["heading"],
+                                d["size"], d["otype"], oid=d["oid"],
+                                alive=d["alive"])
+
+
+def hand_out_fleet(monkeypatch, module, d):
+    """Makes `module`'s generate_fleet hand out the fleet `d` on the CPU."""
+    monkeypatch.setattr(module, "generate_fleet",
+                        lambda gen, cfg, distribution="uniform":
+                        from_jax_numpy(d, device="cpu"))
+
+
+def record_steps(monkeypatch, module, name="make_step"):
+    """Wraps `module`'s step factory `name`: returns a list that gets one
+    (cfg, outputs) entry per step function made, each output appended as
+    its step runs."""
+    made = []
+    real = getattr(module, name)
+
+    def recording(cfg, *args, **kw):
+        stepf = real(cfg, *args, **kw)
+        outs = []
+        made.append((cfg, outs))
+
+        def step(state, gen):
+            res = stepf(state, gen)
+            outs.append(res[1])
+            return res
+        return step
+    monkeypatch.setattr(module, name, recording)
+    return made

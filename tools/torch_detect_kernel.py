@@ -68,7 +68,6 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 MODE_OF = {"fast": "hits", "precise": "survivors"}
-GRAPH_LAUNCHES = 10
 UNROLL = 4    # candidates a lane tests per round (csrc/fused_detect.cu)
 
 
@@ -109,22 +108,6 @@ def cell_lists(torch, dev):
                 if fleet == "dense":
                     cfg = cs.with_slots(cfg, mode, 16)
                 yield f"{fleet}_{dim}_{mode}", cl, cfg, mode
-
-
-def graph_ms(run, torch) -> float:
-    """ms per launch of GRAPH_LAUNCHES launches replayed from a CUDA
-    graph."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        run()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        kept = [run() for _ in range(GRAPH_LAUNCHES)]
-    ms = cs.median_ms(graph.replay, torch) / GRAPH_LAUNCHES
-    del kept, graph
-    return ms
 
 
 def compare(specs, torch, dev, smi) -> bool:
@@ -182,7 +165,8 @@ def compare(specs, torch, dev, smi) -> bool:
                     line[f"{version}_ms{tag}"] = cs.median_ms(run, torch)
             for version in order:
                 with library(libs[version]):
-                    line[f"{version}_graph_ms{tag}"] = graph_ms(run, torch)
+                    line[f"{version}_graph_ms{tag}"] = cs.graph_ms(
+                        run, torch)
         emit(line)
     return ok
 

@@ -4,6 +4,8 @@ device-to-host copy, `to_host_async` starts that copy and `HostCopy.wait`
 ends it."""
 from __future__ import annotations
 
+import subprocess
+
 import numpy as np
 import torch
 
@@ -23,6 +25,18 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device: pass device='cpu' to run on the "
                            "CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def card(dev: torch.device) -> str | None:
+    """The card's name and power limit as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` gives them, None
+    when `dev` is no CUDA device."""
+    if dev.type != "cuda":
+        return None
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def check_on(state, dev: torch.device, what: str) -> None:

@@ -76,7 +76,13 @@ def suggest_survivor_cap(cfg: SystemConfig, state,
     """Fleet-exact DetectionConfig.precise_survivor_cap: the measured need
     plus 1/8 headroom, rounded up to a power of two (at least 1024). A
     later density drift past it is counted in alert_overflow."""
-    need = measure_survivor_need(cfg, state, generator, steps)
+    return survivor_cap_for(measure_survivor_need(cfg, state, generator,
+                                                  steps))
+
+
+def survivor_cap_for(need: int) -> int:
+    """The survivor cap of suggest_survivor_cap's rule for a measured
+    need."""
     cap = max(1024, need + need // 8 + LANE)
     return 1 << (cap - 1).bit_length()
 
