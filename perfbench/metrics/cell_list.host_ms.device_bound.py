@@ -1,0 +1,7 @@
+"""cell_list.host_ms in the device-bound step cells, where it moves
+obj_steps_per_s.device_bound: the reading of cell_list.host_ms.py."""
+from pathlib import Path
+
+from perfbench.harness import load_module
+
+read = load_module(Path(__file__).with_name("cell_list.host_ms.py")).read

@@ -1,0 +1,7 @@
+"""step.idle_pct.in_step in the device-bound step cells, where it moves
+obj_steps_per_s.device_bound: the reading of step.idle_pct.in_step.py."""
+from pathlib import Path
+
+from perfbench.harness import load_module
+
+read = load_module(Path(__file__).with_name("step.idle_pct.in_step.py")).read

@@ -1,7 +1,8 @@
 """The port's copies of the JAX package's host-only modules stay copies:
 core/types.py and core/utils.py equal their originals once the package
 prefix is substituted (utils.py without enable_compile_cache, which
-configures JAX), and so do the service's runtime, traffic simulator, stdlib
+configures JAX, and without the port's spans, its own section at the end),
+and so do the service's runtime, traffic simulator, stdlib
 server and REST modules and the load harness's generator and monitor; the
 route core and the alert manager differ from theirs only in the lines that
 read device tensors and import the port's modules, and the orchestrated run
@@ -57,11 +58,30 @@ def _without_compile_cache(text: str) -> str:
     return (text if cut < 0 else text[:cut]).rstrip() + "\n"
 
 
+# the port's utils.py ends in a section of its own (the spans), after the
+# copy
+PORT_SECTION = "\n# ---- spans on the profiler's clock"
+
+
+def _without_port_section(text: str) -> str:
+    cut = text.find(PORT_SECTION)
+    return (text if cut < 0 else text[:cut]).rstrip() + "\n"
+
+
 @pytest.mark.parametrize("name", ["types.py", "utils.py"])
 def test_host_module_is_a_copy(name):
     want = _without_compile_cache(_source("tpu_collide", name))
-    got = _without_compile_cache(_source("tpu_collide_torch", name))
+    got = _without_port_section(_source("tpu_collide_torch", name))
     assert got == want
+
+
+def test_utils_port_section_defines_only_the_spans():
+    port = (ROOT / "tpu_collide_torch" / "core" / "utils.py").read_text()
+    section = port[port.index(PORT_SECTION):]
+    defined = sorted(line.split()[1].split("(")[0].rstrip(":")
+                     for line in section.splitlines()
+                     if line.startswith(("def ", "class ")))
+    assert defined == ["_NoSpan", "span", "traced"]
 
 
 def test_utils_copy_leaves_out_only_the_compile_cache():

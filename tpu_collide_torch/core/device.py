@@ -1,13 +1,16 @@
 """Where the port's tensors go when the caller names no device (the card),
 and how the host reads them back: `to_host` lands a list of tensors in one
 device-to-host copy, `to_host_async` starts that copy and `HostCopy.wait`
-ends it."""
+ends it. `host_tensor` is torch.tensor on a device, named as the host wait
+it is on a card."""
 from __future__ import annotations
 
 import subprocess
 
 import numpy as np
 import torch
+
+from tpu_collide_torch.core.utils import span
 
 _CARRIED = (torch.float32, torch.int32, torch.bool)
 
@@ -37,6 +40,18 @@ def card(dev: torch.device) -> str | None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def host_tensor(data, dtype: torch.dtype,
+                device: torch.device) -> torch.Tensor:
+    """torch.tensor(data, dtype=dtype, device=device). On a CUDA device the
+    copy leaves pageable host memory, and PyTorch synchronises the stream
+    after it: the host waits for all the work queued before. There the copy
+    runs inside a tc.host_wait span (core/utils.span)."""
+    if device.type != "cuda":
+        return torch.tensor(data, dtype=dtype, device=device)
+    with span("tc.host_wait"):
+        return torch.tensor(data, dtype=dtype, device=device)
 
 
 def check_on(state, dev: torch.device, what: str) -> None:

@@ -151,3 +151,59 @@ class CircuitBreaker:
         self.record_success()
         return out
 
+
+# ---- spans on the profiler's clock (the port's own; the part above is the
+# JAX package's module, copied) ----------------------------------------------
+#
+# `span(name)` marks a stretch of host work as a range that torch.profiler
+# records among its host events, on the clock of its device events: the
+# port's fused step names its layers and its host waits so (tc.step,
+# tc.integrate, tc.cell_list, tc.refine, tc.detect_kernel, tc.hot_pairs,
+# tc.host_wait). The range is a FUNCTION-scope record (_RecordFunctionFast),
+# not torch.profiler.record_function: a user-scope range gets a device-side
+# twin (a gpu_user_annotation event) in a CUDA trace, which a reader of the
+# device timeline would take for a kernel. While no profiler records, a span
+# costs one flag read and hands back one shared context that does nothing.
+
+import functools  # noqa: E402
+
+from torch._C._profiler import _RecordFunctionFast  # noqa: E402
+from torch.autograd import profiler as _profiler  # noqa: E402
+
+
+class _NoSpan:
+    """The context span() returns while no profiler records."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+
+_NO_SPAN = _NoSpan()
+
+
+def span(name: str):
+    """A host range `name` while a profiler records, else the shared no-op:
+    `with span("tc.refine"): ...`."""
+    if not _profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _RecordFunctionFast(name)
+
+
+def traced(name: str):
+    """The decorator form of span: every call of the function inside
+    span(name), the profiler looked at on each call (a decorator runs once,
+    when its module is imported, while no profiler records)."""
+    def wrap(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _profiler._is_profiler_enabled:
+                return fn(*args, **kwargs)
+            with _RecordFunctionFast(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap

@@ -22,6 +22,7 @@ import dataclasses
 import torch
 
 from tpu_collide_torch.core.config import SystemConfig
+from tpu_collide_torch.core.device import host_tensor
 from tpu_collide_torch.core.ops import stable_topk
 from tpu_collide_torch.core.state import ObjectState
 from tpu_collide_torch.index.grid import GridIndex, gather_candidates
@@ -107,7 +108,7 @@ def _fast_first_crossing(rel_pos, rel_vel, safe, det):
     t_first = torch.where(already_inside, torch.zeros_like(t_enter),
                           torch.clamp_min(t_enter, 0.0))
     dt = det.time_step
-    dt_t = torch.tensor(dt, dtype=torch.float32, device=rel_pos.device)
+    dt_t = host_tensor(dt, torch.float32, rel_pos.device)
     t_snap = torch.ceil(t_first / dt_t - 1e-6) * dt
     inside_at_snap = already_inside | ((t_snap >= t_enter - 1e-6)
                                        & (t_snap <= t_exit + 1e-6))
@@ -134,8 +135,8 @@ def _risk_score(dist_hit, t_hit, rel_speed, heading_i, heading_j,
                 type_i, type_j, safe, det):
     """Stage-4 weighted risk, clipped to [0, 1]."""
     dev = dist_hit.device
-    mwt = torch.tensor(det.max_warning_time, dtype=torch.float32, device=dev)
-    mrs = torch.tensor(det.max_relative_speed, dtype=torch.float32, device=dev)
+    mwt = host_tensor(det.max_warning_time, torch.float32, dev)
+    mrs = host_tensor(det.max_relative_speed, torch.float32, dev)
     distance_factor = 1.0 - dist_hit / safe
     time_factor = 1.0 - torch.clamp_max(t_hit / mwt, 1.0)
     speed_factor = torch.clamp_max(rel_speed / mrs, 1.0)

@@ -24,6 +24,7 @@ from tpu_collide_torch.alerts.extract import (AlertBatch, alert_batch,
 from tpu_collide_torch.core.config import SystemConfig
 from tpu_collide_torch.core.device import check_on, resolve_device
 from tpu_collide_torch.core.state import ObjectState
+from tpu_collide_torch.core.utils import span
 from tpu_collide_torch.detect.pipeline import (PairRisks, detect_pairs,
                                                detect_rows)
 from tpu_collide_torch.index.grid import build_grid
@@ -181,8 +182,9 @@ def step_fused(state: ObjectState, generator: torch.Generator | None,
     The alert list equals the reference-shaped path's as unordered pairs
     whenever overflow == alert_overflow == 0 and the scene budget does not
     bind."""
-    state = integrate(state, cfg, generator)
-    return state, detect_and_alerts_fused(state, cfg)
+    with span("tc.step"):
+        state = integrate(state, cfg, generator)
+        return state, detect_and_alerts_fused(state, cfg)
 
 
 # ---- the engine surface ---------------------------------------------------

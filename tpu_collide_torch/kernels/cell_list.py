@@ -26,7 +26,9 @@ import dataclasses
 import torch
 
 from tpu_collide_torch.core.config import SystemConfig
+from tpu_collide_torch.core.device import host_tensor
 from tpu_collide_torch.core.state import ObjectState
+from tpu_collide_torch.core.utils import span, traced
 from tpu_collide_torch.index.grid import cell_coords, flatten_cells
 
 # Sorted per-object record: 16 f32 = 64 bytes, four 16-byte loads in the
@@ -97,6 +99,7 @@ def decode_oid(oid: torch.Tensor) -> torch.Tensor:
     return torch.where(oid <= -2, -oid - 2, oid)
 
 
+@traced("tc.cell_list")
 def build_cell_list(state: ObjectState, cfg: SystemConfig,
                     cls: torch.Tensor | None = None) -> CellList:
     """`cls` ([N] trajectory class in state order) rides in the record's
@@ -108,12 +111,12 @@ def build_cell_list(state: ObjectState, cfg: SystemConfig,
     nx, ny, nz = cfg.grid_dims
     num_cells = nx * ny * nz
     dev = state.device
-    lo = torch.tensor(cfg.world.lo, dtype=torch.float32, device=dev)
+    lo = host_tensor(cfg.world.lo, torch.float32, dev)
     # a 0-dim device tensor keeps the division an IEEE division on every
     # device (torch turns division by a Python scalar into a reciprocal
     # multiply on CUDA)
-    cs = torch.tensor(cfg.grid.cell_size, dtype=torch.float32, device=dev)
-    hi = torch.tensor((nx - 1, ny - 1, nz - 1), dtype=torch.int32, device=dev)
+    cs = host_tensor(cfg.grid.cell_size, torch.float32, dev)
+    hi = host_tensor((nx - 1, ny - 1, nz - 1), torch.int32, dev)
     c3 = torch.clamp(torch.floor((state.pos - lo) / cs).to(torch.int32),
                      min=torch.zeros_like(hi), max=hi)
     flat = (c3[:, 2] * ny + c3[:, 1]) * nx + c3[:, 0]
@@ -177,7 +180,8 @@ def stencil_pairs(cl: CellList, rows: torch.Tensor,
     start, end = stencil_runs(cl, rows, cells)
     s = start.shape[1]
     ln = (end - start).reshape(-1)
-    total = int(ln.sum())
+    with span("tc.host_wait"):
+        total = int(ln.sum())
     dev = cl.fields.device
     run = torch.repeat_interleave(
         torch.arange(ln.numel(), device=dev), ln, output_size=total)

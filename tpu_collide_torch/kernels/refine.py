@@ -31,6 +31,7 @@ import torch
 from tpu_collide_torch.alerts.extract import AlertBatch, compute_priority
 from tpu_collide_torch.core.config import SystemConfig
 from tpu_collide_torch.core.ops import stable_topk, topk_low_index
+from tpu_collide_torch.core.utils import span, traced
 from tpu_collide_torch.detect.pipeline import (_dist_at_time,
                                                _fast_first_crossing, _norm,
                                                _pair_safe_distance,
@@ -200,18 +201,21 @@ def _hot_topup(cl: CellList, cfg: SystemConfig, qual: torch.Tensor, k: int):
     hot_valid = top_q > 0.0
     covered = torch.zeros((m,), dtype=torch.bool, device=qual.device)
     covered[hot_rows] = hot_valid
-    rows = hot_rows[hot_valid]
+    with span("tc.host_wait"):
+        rows = hot_rows[hot_valid]
     if rows.numel() == 0:
         empty = torch.zeros((0,), dtype=torch.int64, device=qual.device)
         return covered, empty.to(torch.float32), empty, empty
-    hown, hcand = stencil_pairs(cl, rows)
-    ref = refine_pairs(cl, hown, hcand, cfg, mode="fast")
-    q = ref.hit & (ref.risk >= cfg.alerts.risk_low)
-    hkey = torch.where(q, ref.priority.to(torch.float32) * 2.0 + ref.risk,
-                       torch.full_like(ref.risk, KEY_NONE))
+    with span("tc.hot_pairs"):
+        hown, hcand = stencil_pairs(cl, rows)
+        ref = refine_pairs(cl, hown, hcand, cfg, mode="fast")
+        q = ref.hit & (ref.risk >= cfg.alerts.risk_low)
+        hkey = torch.where(q, ref.priority.to(torch.float32) * 2.0 + ref.risk,
+                           torch.full_like(ref.risk, KEY_NONE))
     return covered, hkey, hown, hcand
 
 
+@traced("tc.refine")
 def fused_scene_fast(cl: CellList, cfg: SystemConfig,
                      topk=fused_topk) -> FusedSceneResult:
     """Fast mode after the cell list: kernel slots -> scene top-A on the slot
@@ -224,7 +228,8 @@ def fused_scene_fast(cl: CellList, cfg: SystemConfig,
     Only own rows (`cl.own`) emit alerts and count in num_risks and
     alert_overflow; num_checked and max_risk take every row, halo mirrors
     included, as in the JAX package."""
-    s = topk(cl, cfg, mode="hits")
+    with span("tc.detect_kernel"):
+        s = topk(cl, cfg, mode="hits")
     keys, idx = s.keys, s.idx
     m, k = keys.shape
     own = cl.own
@@ -267,12 +272,14 @@ def fused_scene_fast(cl: CellList, cfg: SystemConfig,
     )
 
 
+@traced("tc.refine")
 def fused_scene_precise(cl: CellList, cfg: SystemConfig,
                         topk=fused_topk) -> FusedSceneResult:
     """Precise mode: kernel survivor slots -> compaction to survivor_cap
     records -> sampled constant-acceleration sweep and risk -> scene
     top-A. Only own rows' survivors are kept (see fused_scene_fast)."""
-    s = topk(cl, cfg, mode="survivors")
+    with span("tc.detect_kernel"):
+        s = topk(cl, cfg, mode="survivors")
     keys, idx = s.keys, s.idx
     m, k = keys.shape
     own = cl.own

@@ -11,9 +11,12 @@ from __future__ import annotations
 import torch
 
 from tpu_collide_torch.core.config import SystemConfig
+from tpu_collide_torch.core.device import host_tensor
 from tpu_collide_torch.core.state import ObjectState
+from tpu_collide_torch.core.utils import traced
 
 
+@traced("tc.integrate")
 def integrate(state: ObjectState, cfg: SystemConfig,
               generator: torch.Generator | None = None,
               redraw: torch.Tensor | None = None,
@@ -24,8 +27,8 @@ def integrate(state: ObjectState, cfg: SystemConfig,
     dt = sim.dt
     dev = state.device
     n = state.n
-    lo = torch.tensor(cfg.world.lo, dtype=torch.float32, device=dev)
-    hi = torch.tensor(cfg.world.hi, dtype=torch.float32, device=dev)
+    lo = host_tensor(cfg.world.lo, torch.float32, dev)
+    hi = host_tensor(cfg.world.hi, torch.float32, dev)
     is3d = cfg.world.is_3d
 
     # harness order: move, then bounce, then accelerate
@@ -53,7 +56,7 @@ def integrate(state: ObjectState, cfg: SystemConfig,
     vel = vel + acc * dt
     h_speed = torch.sqrt(torch.sum(vel[:, :2] * vel[:, :2], dim=-1,
                                    keepdim=True))
-    max_speed = torch.tensor(sim.max_speed, dtype=torch.float32, device=dev)
+    max_speed = host_tensor(sim.max_speed, torch.float32, dev)
     scale = torch.where(h_speed > sim.max_speed, max_speed / h_speed,
                         torch.ones_like(h_speed))
     vel = vel * torch.cat([scale, scale, torch.ones_like(scale)], dim=-1)
