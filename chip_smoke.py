@@ -171,6 +171,22 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    torch.profiler (launches, idle share), and the kernel on
                    an inner 8x8 shard's cell list of owned rows and marked
                    halo mirrors
+  scene_cut        the fast tail's scene cut kernel (scene_cut_phase)
+                   bit-equal to its plain version (the qualifying
+                   positions, the count, max_risk): main_path's fast
+                   cells as certified there (100k 2D, 1M 3D), the 100k
+                   fast cell list without and with hot rows, seven edge
+                   cases made from it (every qualifying key tied, keys on
+                   a 0.5 grid, half the rows halo mirrors, a third
+                   covered, few qualifying, every slot qualifying past
+                   SORT_CAP) on all of it and on its first 10k rows, a
+                   cut of nothing (a = 0), shard (2, 0) of
+                   100k_2d_fast_8x2, the tied-key configuration of the
+                   scene-budget test, and the 10M-3D cell list; at the
+                   timed shapes the library's launch count held to the
+                   kernels of one call captured in a CUDA graph, ms,
+                   device ms, plain ms, torch.topk's ms over the same
+                   masked keys and the bound
   xla_path         make_step(cfg, backend="xla") at bench.py's XLA rows
                    (1k precise and 1k fast, city skew) and
                    make_step(cfg100k, chunk_size=8192) on a uniform 100k
@@ -193,7 +209,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 The line before the last lists the kernels with their launches (the
 detection kernels' on main_path, scene, service, scenario, sharded,
 sharded_serving, bench and scale, the predict kernel's on predict_path,
-scene and sharded_serving, the co-sort's on cosort_vs_plain; the sum, and
+scene and sharded_serving, the co-sort's on cosort_vs_plain, the scene
+cut's on main_path's fast steps and in its phase; the sum, and
 each path's in launches_by_path), their times and their bounds;
 the last line
 is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -305,6 +322,39 @@ def graph_ms(run, torch, launches=10) -> float:
     ms = median_ms(graph.replay, torch) / launches
     del kept, graph
     return ms
+
+
+def graph_launches(run, torch) -> tuple:
+    """(kernel nodes, memset nodes) of one call of `run` captured in a CUDA
+    graph, as libcuda.cuGraphGetNodes lists them: the launches the
+    call makes. torch.profiler is no count here: late in chip_smoke.py's
+    process it recorded no device time for these calls."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        kept = run()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
+        raise AssertionError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) != 0:
+        raise AssertionError("cuGraphGetNodes failed")
+    types = []
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                   ctypes.byref(t)) != 0:
+            raise AssertionError("cuGraphNodeGetType failed")
+        types.append(t.value)
+    del kept, graph
+    # CU_GRAPH_NODE_TYPE_KERNEL 0, CU_GRAPH_NODE_TYPE_MEMSET 2
+    return types.count(0), types.count(2)
 
 
 def compare_pred_slots(got, want, k, torch) -> dict:
@@ -779,11 +829,13 @@ def timed_steps(advance, torch) -> tuple:
     """2 + REPEATS calls of advance() -> StepOutput, the last REPEATS timed
     with CUDA events: (worst overflow, worst alert_overflow, last output,
     median ms per step, the detection kernel's launches). Fails unless every
-    step launched the kernel once."""
+    step launched the kernel once. Leaves the scene cut's calls in these
+    steps in refine.scene_cut.launches."""
     from tpu_collide_torch.kernels.fused_detect import fused_topk
+    from tpu_collide_torch.kernels.refine import scene_cut
     worst_of = worst_ao = None
     events = []
-    fused_topk.launches = 0
+    fused_topk.launches = scene_cut.launches = 0
     for i in range(2 + REPEATS):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -3641,6 +3693,247 @@ def scale_phase(smi, torch, dev) -> dict:
     return dict(launches=launches, max_abs_err=err)
 
 
+SCENE_CUT_SLICE = 10_000   # rows of the 100k slots cut by the single block
+
+
+def scene_cut_inputs(cl, cfg, torch):
+    """(keys, own, covered, hkey, a) of the fast tail's scene cut on a cell
+    list, as refine.fused_scene_fast hands them to it."""
+    from tpu_collide_torch.kernels.fused_detect import fused_topk
+    from tpu_collide_torch.kernels.refine import _hot_topup
+    s = fused_topk(cl, cfg, "hits")
+    m, k = s.keys.shape
+    if cfg.detect.hot_topup > 0:
+        covered, hkey = _hot_topup(cl, cfg, s.qual, k)[:2]
+    else:
+        covered = torch.zeros((m,), dtype=torch.bool, device=s.keys.device)
+        hkey = s.keys.new_zeros((0,))
+    return (s.keys, cl.own, covered, hkey,
+            min(cfg.alerts.max_scene_alerts, m * k + hkey.numel()))
+
+
+def scene_cut_variants(base, torch):
+    """Edge cases made from one shape's real slots: every qualifying key
+    tied, keys on a 0.5 grid (ties across the row threshold), half the
+    rows halo mirrors, a third covered, one qualifying key in a thousand
+    (fewer than a), and every slot qualifying with a budget past the
+    final block's shared memory (SORT_CAP)."""
+    keys, own, covered, hkey, a = base
+    gen = torch.Generator(device=keys.device).manual_seed(7)
+    rand = lambda shape: torch.rand(shape, generator=gen, device=keys.device)
+    q, hq = keys >= 0.0, hkey >= 0.0
+    m, k = keys.shape
+    tied = lambda x, c: torch.where(c, torch.full_like(x, 7.0), x)
+    grid = lambda x, c: torch.where(c, torch.round(x * 2.0) * 0.5, x)
+    few = lambda x, c, r: torch.where(c & (r < 1e-3), x, torch.where(
+        c, torch.full_like(x, -3.0), x))
+    dense = lambda x: 2.0 * torch.floor(rand(x.shape) * 4.0) + rand(x.shape)
+    return {
+        "as_is": base,
+        "all_tied": (tied(keys, q), own, covered, tied(hkey, hq), a),
+        "grid": (grid(keys, q), own, covered, grid(hkey, hq), a),
+        "mirrors": (keys, own & (rand((m,)) < 0.5), covered, hkey, a),
+        "covered": (keys, own, covered | (rand((m,)) < 0.3), hkey, a),
+        "few": (few(keys, q, rand(keys.shape)), own, covered,
+                few(hkey, hq, rand(hkey.shape)), a),
+        "dense": (dense(keys), own, covered, dense(hkey),
+                  min(8192, m * k + hkey.numel())),
+    }
+
+
+def scene_cut_check(name, inputs, smi, torch, timed=False) -> dict:
+    """The scene cut kernel against scene_cut_plain on one input: top_key
+    and top_i at every qualifying position, the count and max_risk equal
+    bit for bit (max_abs_err: the largest difference of those keys and of
+    max_risk). With `timed`: the library's launch count against the
+    kernels and memsets of one call captured in a CUDA graph
+    (graph_launches), its CUDA-event ms, its device ms
+    (graph_ms), the plain version's ms, torch.topk's ms over the same
+    masked slot keys, and the bound (the keys' and the row masks' bytes
+    once)."""
+    from tpu_collide_torch.kernels import _build
+    from tpu_collide_torch.kernels.fused_detect import KEY_NONE
+    from tpu_collide_torch.kernels.refine import scene_cut, scene_cut_plain
+    keys, own, covered, hkey, a = inputs
+    m, k = keys.shape
+    p = hkey.numel()
+    plan = (ctypes.c_longlong * 5)()
+    _build.load_library().tc_scene_cut_plan(m, k, p, a, plan)
+    before = scene_cut.launches
+    got = scene_cut(keys, own, covered, hkey, a)
+    want = scene_cut_plain(keys, own, covered, hkey, a)
+    torch.cuda.synchronize()
+    if scene_cut.launches != before + 1:
+        raise AssertionError(f"scene_cut {name}: the kernel did not run")
+    n = int(want.count)
+    bits = lambda x: x.view(torch.int32)
+    if int(got.count) != n \
+            or not torch.equal(got.top_i[:n], want.top_i[:n]) \
+            or not torch.equal(bits(got.top_key[:n]), bits(want.top_key[:n])) \
+            or not torch.equal(bits(got.max_risk), bits(want.max_risk)):
+        bad = (got.top_i[:n] != want.top_i[:n]).nonzero()
+        raise AssertionError(
+            f"scene_cut {name}: count {int(got.count)} / {n}, first differing "
+            f"position {bad[:1].tolist()}, max_risk {float(got.max_risk)} / "
+            f"{float(want.max_risk)}")
+    err = float((got.max_risk.double() - want.max_risk.double()).abs())
+    if n:
+        err = max(err, float((got.top_key[:n].double()
+                              - want.top_key[:n].double()).abs().max()))
+    line = dict(phase="scene_cut", case=name, m=m, k=k, hot=p, a=a,
+                qualifying=n, single=bool(plan[2]), launches=plan[1],
+                bit_equal=True, max_abs_err=err)
+    if timed:
+        run = lambda: scene_cut(keys, own, covered, hkey, a)
+        seen = graph_launches(run, torch)
+        if seen != (plan[1], 1 - plan[2]):
+            raise AssertionError(f"scene_cut {name}: (kernels, memsets) "
+                                 f"{seen} a call, the library plans "
+                                 f"{plan[1]} kernels")
+        sel = torch.where(own[:, None] & (keys > KEY_NONE)
+                          & ~covered[:, None], keys,
+                          torch.full_like(keys, KEY_NONE)).reshape(-1)
+        line.update(
+            ms=median_ms(run, torch), device_ms=graph_ms(run, torch),
+            plain_ms=median_ms(
+                lambda: scene_cut_plain(keys, own, covered, hkey, a), torch,
+                repeats=3),
+            library_ms=median_ms(lambda: torch.topk(sel, a), torch),
+            **bound(4 * m * k + 2 * m + 4 * p, 0), card=smi)
+        del sel
+    emit(line)
+    return line
+
+
+def scene_cut_phase(smi, torch, dev, main_fast) -> dict:
+    """The scene cut kernel (csrc/scene_cut.cu) bit-equal to its plain
+    version on the card: main_path's fast cells (`main_fast`: name ->
+    (certified cfg, fleet distribution)) on a fleet of their own; the 100k
+    fast cell list with and without hot rows (the multi-launch path) and
+    every edge case of scene_cut_variants on it and on its first
+    SCENE_CUT_SLICE rows (the single block); a cut of nothing (a = 0,
+    max_risk alone); the 10M-3D cell list (tools/torch_scale_bench.py's
+    cfg_10m); shard (2, 0) of 100k_2d_fast_8x2, halo mirrors marked; the
+    tied-key configuration of tests/test_torch_faults.py's scene-budget
+    test (400 objects, 16 alerts). Returns {"launches": kernel calls,
+    "max_abs_err": the largest over the phase, "lines": timed lines}."""
+    import dataclasses as dc
+
+    import tpu_collide_torch as tt
+    from tpu_collide_torch.core.config import (AlertConfig, DetectionConfig,
+                                               GridConfig, SimConfig,
+                                               WorldConfig)
+    from tpu_collide_torch.core.state import state_from_numpy
+    from tpu_collide_torch.kernels.cell_list import build_cell_list
+    from tpu_collide_torch.kernels.refine import scene_cut
+    from tpu_collide_torch.shard import distribute_state, make_mesh
+    from tpu_collide_torch.shard.step import _default_walls, _halo_extend
+    from tpu_collide_torch.sim import generate_fleet
+    import numpy as np
+    start = scene_cut.launches
+    timed, checked = {}, []
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+
+    def check(name, inputs, timed_line=False):
+        line = scene_cut_check(name, inputs, smi, torch, timed_line)
+        checked.append(line["max_abs_err"])
+        if timed_line:
+            timed[name] = line
+        return line
+
+    for seed, (name, (cfg, dist)) in enumerate(main_fast.items()):
+        cl = build_cell_list(generate_fleet(gen(700 + seed), cfg, dist), cfg)
+        check(f"main_path_{name}", scene_cut_inputs(cl, cfg, torch), True)
+        del cl
+
+    cfg100k = bench_configs()[0]
+    cl = build_cell_list(generate_fleet(gen(600), cfg100k, "uniform"),
+                         cfg100k)
+    cold = cfg100k.replace(detect=dc.replace(cfg100k.detect, hot_topup=0))
+    base = scene_cut_inputs(cl, cold, torch)
+    check("100k_2d_fast", base, True)
+    rows = slice(0, 3000)
+    check("3k_2d_fast", tuple(x[rows].contiguous() for x in base[:3]) + (
+        base[3], min(base[4], 3000 * base[0].shape[1])))
+    hot = scene_cut_inputs(cl, with_slots(cfg100k, "hits", 2), torch)
+    if hot[3].numel() == 0:
+        raise AssertionError("scene_cut: the 100k fleet at k 2 has no hot row")
+    check("100k_2d_fast_hot", hot, True)
+    for name, inputs in scene_cut_variants(hot, torch).items():
+        check(f"100k_{name}", inputs)
+        keys, own, covered, hkey, a = inputs
+        rows = slice(0, SCENE_CUT_SLICE)
+        small = (keys[rows].contiguous(), own[rows].contiguous(),
+                 covered[rows].contiguous(), hkey)
+        check(f"{SCENE_CUT_SLICE // 1000}k_{name}", small + (
+            min(a, small[0].numel() + hkey.numel()),))
+    check("100k_nothing", hot[:4] + (0,))
+    del cl, hot
+
+    shard_cfg = sharded_config()
+    mesh = make_mesh(shard_cfg, device=dev)
+    states = distribute_state(generate_fleet(gen(0), shard_cfg, "uniform"),
+                              shard_cfg, mesh)
+    ext, _ = _halo_extend(states, shard_cfg, mesh,
+                          _default_walls(shard_cfg, mesh), mark=True)
+    s = next(i for i in range(len(ext)) if mesh.coords(i)[:2] == (2, 0))
+    cl = build_cell_list(ext[s], shard_cfg)
+    if int((cl.alive & ~cl.own).sum()) == 0:
+        raise AssertionError("scene_cut: shard (2, 0) holds no halo mirror")
+    check("shard_2_0_of_100k_2d_fast_8x2",
+          scene_cut_inputs(cl, shard_cfg, torch), True)
+    del mesh, states, ext, cl
+
+    # tests/torch_parity.np_fleet(5, 400, 2000.0), the tied-key test's fleet
+    rng = np.random.default_rng(5)
+    n, world = 400, 2000.0
+    pos = rng.uniform(0.0, world, (n, 3))
+    centres = rng.uniform(0.3 * world, 0.7 * world, (3, 3))
+    mc = rng.random(n) < 0.45
+    pos[mc] = (centres[rng.integers(0, 3, mc.sum())]
+               + rng.normal(0.0, 0.06 * world, (mc.sum(), 3)))
+    pos = np.clip(pos, 0.0, world)
+    heading = rng.uniform(0.0, 2 * np.pi, n)
+    speed = rng.uniform(5.0, 20.0, n)
+    vel = np.stack([speed * np.cos(heading), speed * np.sin(heading),
+                    np.zeros(n)], -1)
+    pos[:, 2] = 0.0
+    otype = rng.integers(0, 4, n)
+    st = state_from_numpy(
+        pos.astype(np.float32), vel.astype(np.float32),
+        np.zeros((n, 3), np.float32), heading.astype(np.float32),
+        np.array([2.0, 4.0, 5.0, 1.0], np.float32)[otype],
+        otype.astype(np.int32), device=dev)
+    tied_cfg = tt.SystemConfig(
+        num_objects=n, world=WorldConfig(hi=(world, world, 0.0)),
+        grid=GridConfig(cell_size=100.0, cell_capacity=64),
+        detect=DetectionConfig(mode="fast", weight_speed=2.0,
+                               max_relative_speed=1.0),
+        alerts=AlertConfig(max_scene_alerts=16),
+        sim=SimConfig(accel_change_prob=0.0))
+    tied = scene_cut_inputs(build_cell_list(st, tied_cfg), tied_cfg, torch)
+    check("tied_400", tied, True)
+    # the 16th listed key has equal eligible keys left out of the list
+    keys, own, covered, hkey, a = tied
+    last = scene_cut(keys, own, covered, hkey, a).top_key[a - 1]
+    left = (int((keys[own & ~covered] == last).sum())
+            + int((hkey == last).sum()))
+    listed = int((scene_cut(keys, own, covered, hkey, a).top_key
+                  == last).sum())
+    if timed["tied_400"]["qualifying"] != a or left <= listed:
+        raise AssertionError("scene_cut tied_400: the budget does not bind "
+                             "on tied keys")
+
+    tsb = load_tool("torch_scale_bench")
+    cfg10m = tsb.cfg_10m("fast")
+    cl = build_cell_list(generate_fleet(gen(601), cfg10m, "uniform"), cfg10m)
+    check("10m_3d_fast", scene_cut_inputs(cl, cfg10m, torch), True)
+    del cl
+    torch.cuda.empty_cache()
+    return dict(launches=scene_cut.launches - start,
+                max_abs_err=max(checked), lines=timed)
+
+
 def by_oid_state(host, torch):
     """The alive objects of a collected state in oid order."""
     from tpu_collide_torch.core.state import FIELDS
@@ -3785,15 +4078,24 @@ def main() -> None:
                   ttc=[v[1] for v in got.values()]))
 
     # ---- main_path ----
+    from tpu_collide_torch.kernels.refine import scene_cut
     runs = main_path_runs()
     launches = {"hits": 0, "survivors": 0}
     kernel_ms, bounds = {}, {}
+    main_cuts, main_fast = 0, {}
     for seed, (name, cfg, dist) in enumerate(runs):
         mode = mode_of[cfg.detect.mode]
         drive = lambda c: fused_steps(c, dist, 100 + seed, torch, dev)
         cfg, worst_ao, res, attempts = certified(cfg, drive)
         state, out, worst_of, ms_per_step, n_launch = res
         launches[mode] += n_launch
+        n_cut = scene_cut.launches       # of the adopted attempt's steps
+        if n_cut != (n_launch if mode == "hits" else 0):
+            raise AssertionError(f"{name}: {n_cut} scene cut launches in "
+                                 f"{n_launch} fused steps")
+        main_cuts += n_cut
+        if mode == "hits":
+            main_fast[name] = (cfg, dist)
         check_output(out, cfg, torch)
         if worst_of != 0 or worst_ao != 0:
             raise AssertionError(
@@ -3805,7 +4107,8 @@ def main() -> None:
         line = dict(
             phase="main_path", config=name, distribution=dist,
             ms_per_step=ms_per_step, steps_timed=REPEATS,
-            kernel_launches=n_launch, attempts=attempts,
+            kernel_launches=n_launch, scene_cut_launches=n_cut,
+            attempts=attempts,
             max_alerts_per_object=cfg.alerts.max_alerts_per_object,
             survivor_k=cfg.detect.survivor_k, survivor_cap=cfg.survivor_cap,
             num_risks=int(out.num_risks), alerts=int(out.alerts.count),
@@ -4031,6 +4334,9 @@ def main() -> None:
 
     # ---- scale: 10M-3D, the one-shard 1M mesh, 64k on 16 and 64 shards --
     scale = scale_phase(smi, torch, dev)
+
+    # ---- scene_cut: the fast tail's scene cut kernel ----
+    cut = scene_cut_phase(smi, torch, dev, main_fast)
 
     # ---- xla_path: the reference-shaped step ----
     cfg1k_p = tt.SystemConfig(num_objects=1000,
@@ -4273,6 +4579,19 @@ def main() -> None:
                         bound_ms=sort_ms["bound_ms"],
                         bound_by=sort_ms["bound_by"],
                         library_ms=sort_ms["library_ms"]))
+    cut10m = cut["lines"]["10m_3d_fast"]
+    kernels.append(dict(name="scene_cut", route="cuda",
+                        source="tpu_collide_torch/csrc/scene_cut.cu",
+                        replaces=None,
+                        launches=main_cuts + cut["launches"],
+                        launches_by_path=dict(main_path=main_cuts,
+                                              scene_cut=cut["launches"]),
+                        max_abs_err=cut["max_abs_err"], ms=cut10m["ms"],
+                        device_ms=cut10m["device_ms"],
+                        plain_ms=cut10m["plain_ms"],
+                        bound_ms=cut10m["bound_ms"],
+                        bound_by=cut10m["bound_by"],
+                        library_ms=cut10m["library_ms"]))
     for kr in kernels:
         for path, n in kr["launches_by_path"].items():
             if n == 0:

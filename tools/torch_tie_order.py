@@ -2,14 +2,16 @@
 
     python3 tools/torch_tie_order.py
 
-The fused tail (kernels/refine.py) selects hot rows and the scene top-A
-(fast and precise) with core/ops.topk_low_index, which takes ties by the
-lower index; the survivor compaction, whose cap is a large share of its
-input, always takes core/ops.stable_topk. This tool drives chip_smoke.py's
-four main_path configurations (the precise ones at the survivor_k and
-survivor cap that chip_smoke.certified adopts) with three
-selections at those three sites in turns, first in the order given and
-then reversed, inside one process:
+The fused tail (kernels/refine.py) selects hot rows and the precise scene
+top-A with core/ops.topk_low_index, which takes ties by the lower index;
+the fast scene top-A is the scene cut kernel on the card (csrc/scene_cut.cu,
+ties by the lower index too) and no longer takes a selection here; the
+survivor compaction, whose cap is a large share of its input, always takes
+core/ops.stable_topk. This tool drives chip_smoke.py's four main_path
+configurations (the precise ones at the survivor_k and survivor cap that
+chip_smoke.certified adopts) with three selections at the sites that take
+one, in turns, first in the order given and then reversed, inside one
+process:
 
   torch_topk   torch.topk as it is (ties in no promised order): the tail
                before the repair

@@ -126,6 +126,13 @@ def open_library(csrc: Path) -> ctypes.CDLL:
     if hasattr(lib, "tc_co_sort_launches"):   # not in older copies of csrc
         lib.tc_co_sort_launches.argtypes = [ci]
         lib.tc_co_sort_launches.restype = ci
+    if hasattr(lib, "tc_scene_cut"):          # not in older copies of csrc
+        ll = ctypes.c_longlong
+        lib.tc_scene_cut.argtypes = [vp, vp, vp, ci, ci, vp, ci, ci, vp, ll,
+                                     vp, vp, vp, vp, vp]
+        lib.tc_scene_cut.restype = ci
+        lib.tc_scene_cut_plan.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ll)]
+        lib.tc_scene_cut_plan.restype = None
     lib.tc_error_string.argtypes = [ci]
     lib.tc_error_string.restype = ctypes.c_char_p
     return lib

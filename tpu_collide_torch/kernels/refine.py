@@ -20,10 +20,13 @@ and predicted-risk values follow the reference path's math. The alert
 buffer always has `max_scene_alerts` entries. Every selection (hot rows,
 scene top-A, survivor compaction) takes ties by the lower flat index, as
 jax.lax.top_k does (core/ops.topk_low_index), so a cap that binds on equal
-keys keeps the same entries in every run.
+keys keeps the same entries in every run. The fast mode's scene top-A
+(`scene_cut`) is a CUDA kernel on the card (csrc/scene_cut.cu) and the
+flat cut `scene_cut_plain` on the CPU.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
@@ -44,8 +47,9 @@ from tpu_collide_torch.detect.predict import (class_advance,
 from tpu_collide_torch.kernels.cell_list import (CellList, FI,
                                                  build_cell_list, decode_oid,
                                                  flat_cells, stencil_pairs)
-from tpu_collide_torch.kernels.fused_detect import (KEY_NONE, fused_topk,
-                                                    predict_topk)
+from tpu_collide_torch.kernels.fused_detect import (KEY_NONE, _check_inputs,
+                                                    _library, _on_device,
+                                                    fused_topk, predict_topk)
 
 
 def decode_risk(keys: torch.Tensor) -> torch.Tensor:
@@ -215,11 +219,107 @@ def _hot_topup(cl: CellList, cfg: SystemConfig, qual: torch.Tensor, k: int):
     return covered, hkey, hown, hcand
 
 
+@dataclasses.dataclass(frozen=True)
+class SceneCut:
+    """The fast tail's scene top-A (see scene_cut)."""
+    top_key: torch.Tensor   # [a] f32: the qualifying keys, best first
+    top_i: torch.Tensor     # [a] int64 flat index: slot r*k + j, hot m*k + j
+    count: torch.Tensor     # [] int32 qualifying entries listed
+    max_risk: torch.Tensor  # [] f32
+
+
+def scene_cut_plain(keys: torch.Tensor, own: torch.Tensor,
+                    covered: torch.Tensor, hkey: torch.Tensor,
+                    a: int) -> SceneCut:
+    """scene_cut as one flat cut over every slot and hot key, in plain
+    PyTorch on any device."""
+    occupied = keys > KEY_NONE
+    sel = torch.where(own[:, None] & occupied & ~covered[:, None], keys,
+                      torch.full_like(keys, KEY_NONE))
+    allk = torch.cat([sel.reshape(-1), hkey])
+    top_key, top_i = topk_low_index(allk, a)
+    slot_risk = torch.where(occupied, decode_risk(keys),
+                            torch.zeros_like(keys))
+    return SceneCut(
+        top_key=top_key, top_i=top_i,
+        count=(top_key >= 0.0).sum(dtype=torch.int32),
+        max_risk=(slot_risk.max() if slot_risk.numel()
+                  else keys.new_zeros(())))
+
+
+def scene_cut(keys: torch.Tensor, own: torch.Tensor, covered: torch.Tensor,
+              hkey: torch.Tensor, a: int) -> SceneCut:
+    """The scene top-A of the fast tail. keys [m, k] f32 slot keys, own /
+    covered [m] bool, hkey [P] f32 hot keys, 0 <= a <= m*k + P outputs.
+
+    The eligible entries are the slots of own rows not covered by the hot
+    top-up (slot r*k + j) and the hot keys (m*k + j). The first `count`
+    positions hold the qualifying ones (key >= 0) by key descending, then
+    flat index ascending, as topk_low_index over the flat list ranks them;
+    the positions after them are padding. max_risk: the largest
+    decode_risk of an occupied slot (key > KEY_NONE, which the slots'
+    contract makes the same as idx >= 0), halo mirrors and covered rows
+    included, and 0.
+
+    CUDA tensors launch the kernel (csrc/scene_cut.cu) or raise, and count
+    the call in `scene_cut.launches`; CPU tensors take scene_cut_plain."""
+    dev = keys.device
+    if not 0 <= a <= keys.numel() + hkey.numel():
+        raise ValueError(f"scene_cut: no cut of {a} from {tuple(keys.shape)} "
+                         f"slots and {hkey.numel()} hot keys")
+    if dev.type == "cuda":
+        out = _scene_cut_launch(keys, own, covered, hkey, a)
+        scene_cut.launches += 1
+        return out
+    if dev.type == "cpu":
+        return scene_cut_plain(keys, own, covered, hkey, a)
+    raise ValueError(f"scene_cut has no kernel for device {dev}")
+
+
+scene_cut.launches = 0
+
+
+def _scene_cut_launch(keys, own, covered, hkey, a) -> SceneCut:
+    m, k = keys.shape
+    p = hkey.numel()
+    dev = keys.device
+    _check_inputs("scene_cut", dev, (
+        ("keys", keys, torch.float32, (m, k)),
+        ("own", own, torch.bool, (m,)),
+        ("covered", covered, torch.bool, (m,)),
+        ("hkey", hkey, torch.float32, (p,))))
+    lib = _library()
+    plan = (ctypes.c_longlong * 5)()
+    lib.tc_scene_cut_plan(m, k, p, a, plan)
+    if plan[0] < 0:
+        raise ValueError(f"scene_cut: the kernel cannot cut {a} from {m} x "
+                         f"{k} slots and {p} hot keys")
+    ws = torch.empty((plan[0],), dtype=torch.uint8, device=dev)
+    out = SceneCut(
+        top_key=torch.empty((a,), dtype=torch.float32, device=dev),
+        top_i=torch.empty((a,), dtype=torch.int64, device=dev),
+        count=torch.empty((), dtype=torch.int32, device=dev),
+        max_risk=torch.empty((), dtype=torch.float32, device=dev))
+    with _on_device(dev):
+        rc = lib.tc_scene_cut(
+            keys.data_ptr(), own.data_ptr(), covered.data_ptr(), m, k,
+            hkey.data_ptr(), p, a, ws.data_ptr(), plan[0],
+            out.top_key.data_ptr(), out.top_i.data_ptr(),
+            out.count.data_ptr(), out.max_risk.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"scene_cut kernel launch failed: CUDA error {rc} "
+            f"({lib.tc_error_string(rc).decode()})")
+    return out
+
+
 @traced("tc.refine")
 def fused_scene_fast(cl: CellList, cfg: SystemConfig,
                      topk=fused_topk) -> FusedSceneResult:
     """Fast mode after the cell list: kernel slots -> scene top-A on the slot
-    keys (plus hot rows) -> refine the selected pairs -> AlertBatch.
+    keys (plus hot rows; scene_cut) -> refine the selected pairs ->
+    AlertBatch.
 
     Each object's qualifying pairs enter from its own side, so both
     directions of a pair may appear. `topk` is the slot function
@@ -233,19 +333,16 @@ def fused_scene_fast(cl: CellList, cfg: SystemConfig,
     keys, idx = s.keys, s.idx
     m, k = keys.shape
     own = cl.own
-    occupied = idx >= 0
     if cfg.detect.hot_topup > 0:
         covered, hkey, hown, hcand = _hot_topup(cl, cfg, s.qual, k)
     else:
         covered = torch.zeros((m,), dtype=torch.bool, device=keys.device)
         hkey = keys.new_zeros((0,))
-    sel = torch.where(own[:, None] & occupied & ~covered[:, None], keys,
-                      torch.full_like(keys, KEY_NONE))
-    allk = torch.cat([sel.reshape(-1), hkey])
-    a = min(cfg.alerts.max_scene_alerts, allk.numel())
-    top_key, top_i = topk_low_index(allk, a)
-    valid = top_key >= 0.0                       # qualifying keys only
     mk = m * k
+    cut = scene_cut(keys, own, covered, hkey,
+                    min(cfg.alerts.max_scene_alerts, mk + hkey.numel()))
+    top_i = cut.top_i
+    valid = cut.top_key >= 0.0                   # qualifying keys only
     flat_slot = torch.clamp(top_i, max=mk - 1)
     own_slot = flat_slot // k
     cand_idx = idx.reshape(-1)[flat_slot].to(torch.int64)
@@ -258,14 +355,12 @@ def fused_scene_fast(cl: CellList, cfg: SystemConfig,
     valid = valid & ref.hit & (ref.risk >= cfg.alerts.risk_low)
     alerts = _alert_batch(valid, ref, cfg.alerts.max_scene_alerts)
 
-    slot_risk = torch.where(occupied, decode_risk(keys),
-                            torch.zeros_like(keys))
     zero = torch.zeros_like(s.qual)
     return FusedSceneResult(
         alerts=alerts,
         num_checked=s.checked.to(torch.int32),
         num_risks=torch.where(own, s.emitted, zero).sum(dtype=torch.int32),
-        max_risk=slot_risk.max() if slot_risk.numel() else keys.new_zeros(()),
+        max_risk=cut.max_risk,
         alert_overflow=torch.where(
             own & ~covered, torch.clamp_min(s.qual - k, 0),
             zero).sum(dtype=torch.int32),
