@@ -10,9 +10,9 @@ density (2.5e-5 a m^3); cfg_1m (1M in 10 x 10 x 0.5 km) to 400 objects in
 the same small world (2e-5 a m^3, cfg_1m's); accel_change_prob 0, so that
 the physics is deterministic and both packages step the same trajectories
 whatever their draws; the scan at 4 steps in chunks of 2 (the tool's: 9 in
-chunks of 3, 6 in chunks of 2); k 1 with the hot top-up off (fast) and
-survivor_k 1 (precise), so that the certificates compared are not 0 and the
-adopt rule runs. The probe's comparison with the JAX package packs the 500
+chunks of 3, 6 in chunks of 2); k 1 (fast) and survivor_k 1 (precise),
+both with the hot top-up off (the JAX package has none in precise mode), so
+that the certificates compared are not 0 and the adopt rule runs. The probe's comparison with the JAX package packs the 500
 objects into 160 x 160 x 50 m at survivor_k 8 (cfg_10m's), so that the
 survivor need exceeds the 1,024 floor of the cap's rule; at the config's
 density 500 objects need about 100 and every cap is the floor.
@@ -72,13 +72,14 @@ def shrunk_10m(mode="fast"):
 
 
 def small_10m(mode):
-    """shrunk_10m(mode) at one slot (fast: without the hot top-up)."""
+    """shrunk_10m(mode) at one slot, without the hot top-up."""
     cfg = shrunk_10m(mode)
     if mode == "fast":
         return cfg.replace(
             alerts=dataclasses.replace(cfg.alerts, max_alerts_per_object=1),
             detect=dataclasses.replace(cfg.detect, hot_topup=0))
-    return cfg.replace(detect=dataclasses.replace(cfg.detect, survivor_k=1))
+    return cfg.replace(detect=dataclasses.replace(cfg.detect, survivor_k=1,
+                                                  hot_topup=0))
 
 
 def small_1m():

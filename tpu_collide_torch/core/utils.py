@@ -159,7 +159,8 @@ class CircuitBreaker:
 # records among its host events, on the clock of its device events: the
 # port's fused step names its layers and its host waits so (tc.step,
 # tc.integrate, tc.cell_list, tc.refine, tc.detect_kernel, tc.hot_pairs,
-# tc.host_wait). The range is a FUNCTION-scope record (_RecordFunctionFast),
+# tc.host_wait; in precise mode tc.survivor_cut and tc.precise_sweep inside
+# tc.refine). The range is a FUNCTION-scope record (_RecordFunctionFast),
 # not torch.profiler.record_function: a user-scope range gets a device-side
 # twin (a gpu_user_annotation event) in a CUDA trace, which a reader of the
 # device timeline would take for a kernel. While no profiler records, a span

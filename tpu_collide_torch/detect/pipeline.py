@@ -25,6 +25,7 @@ from tpu_collide_torch.core.config import SystemConfig
 from tpu_collide_torch.core.device import host_tensor
 from tpu_collide_torch.core.ops import stable_topk
 from tpu_collide_torch.core.state import ObjectState
+from tpu_collide_torch.core.utils import span
 from tpu_collide_torch.index.grid import GridIndex, gather_candidates
 
 
@@ -78,18 +79,20 @@ def _precise_sweep(rel_pos, rel_vel, rel_acc, safe, det):
     t_hit = torch.full(lead, float("inf"), dtype=torch.float32, device=dev)
     d_hit = torch.full(lead, float("inf"), dtype=torch.float32, device=dev)
     view = (-1,) + (1,) * len(lead)
-    for k0 in range(0, T, C):
-        k = torch.arange(k0, min(k0 + C, T), dtype=torch.int32, device=dev)
-        t = (k.to(torch.float32) * dt).reshape(view).expand(
-            (k.numel(),) + tuple(lead))
-        d = _dist_at_time(rel_pos[None], rel_vel[None], rel_acc[None], t)
-        inside = d <= safe[None]
-        has = inside.any(dim=0)
-        first = torch.argmax(inside.to(torch.int8), dim=0, keepdim=True)
-        new = has & ~hit
-        t_hit = torch.where(new, torch.gather(t, 0, first)[0], t_hit)
-        d_hit = torch.where(new, torch.gather(d, 0, first)[0], d_hit)
-        hit = hit | new
+    with span("tc.precise_sweep"):
+        for k0 in range(0, T, C):
+            k = torch.arange(k0, min(k0 + C, T), dtype=torch.int32,
+                             device=dev)
+            t = (k.to(torch.float32) * dt).reshape(view).expand(
+                (k.numel(),) + tuple(lead))
+            d = _dist_at_time(rel_pos[None], rel_vel[None], rel_acc[None], t)
+            inside = d <= safe[None]
+            has = inside.any(dim=0)
+            first = torch.argmax(inside.to(torch.int8), dim=0, keepdim=True)
+            new = has & ~hit
+            t_hit = torch.where(new, torch.gather(t, 0, first)[0], t_hit)
+            d_hit = torch.where(new, torch.gather(d, 0, first)[0], d_hit)
+            hit = hit | new
     return hit, t_hit, d_hit
 
 

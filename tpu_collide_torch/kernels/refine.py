@@ -8,7 +8,8 @@ prediction's (the port of tpu_collide/kernels/refine.py).
     neighbourhood recomputed and merged into the selection (`_hot_topup`).
   * precise mode: the slots hold stage-2 survivors; they are compacted to
     `survivor_cap` records and swept with the sampled constant-acceleration
-    stage 3.
+    stage 3. Hot rows (more survivors than slots) have their whole stencil
+    neighbourhood swept instead, as in fast mode.
 
   * prediction (`fused_predict`): the predict kernel's per-offset slots
     -> the selected pairs recomputed -> merge per pair in sorted-row
@@ -185,28 +186,38 @@ def _alert_batch(valid, ref: RefinedPairs, size: int) -> AlertBatch:
     )
 
 
+def _hot_rows(cl: CellList, cfg: SystemConfig, count: torch.Tensor, k: int):
+    """The hot rows: own rows (never halo mirrors) with more than k of
+    `count` [m] (qualifying pairs in fast mode, stage-2 survivors in precise
+    mode), the up to `hot_topup` hottest of them. Rows beyond the cap stay
+    counted in alert_overflow.
+
+    Returns (covered [m] bool, rows [h] int64). Waits for the device once,
+    to learn whether any row is hot."""
+    H = cfg.detect.hot_topup
+    m = count.numel()
+    hot = cl.own & (count > k)
+    hot_rank = torch.where(hot, count.to(torch.float32),
+                           torch.full_like(count, -1, dtype=torch.float32))
+    top_q, hot_rows = topk_low_index(hot_rank, min(H, m))
+    hot_valid = top_q > 0.0
+    covered = torch.zeros((m,), dtype=torch.bool, device=count.device)
+    covered[hot_rows] = hot_valid
+    with span("tc.host_wait"):
+        rows = hot_rows[hot_valid]
+    return covered, rows
+
+
 def _hot_topup(cl: CellList, cfg: SystemConfig, qual: torch.Tensor, k: int):
-    """Exact top-up for hot rows (own rows, never halo mirrors, with more
-    qualifying pairs than the k slots). The up to `hot_topup` hottest rows
-    get their whole stencil neighbourhood (the runs the kernel walks)
-    recomputed; their pairs replace their slots in the scene selection.
-    Rows beyond the cap stay counted in alert_overflow.
+    """Exact top-up for the hot rows of fast mode (see _hot_rows): their
+    whole stencil neighbourhood (the runs the kernel walks) is recomputed;
+    their pairs replace their slots in the scene selection.
 
     Returns (covered [m] bool, hkey [P] f32 scene key (KEY_NONE where not
     qualifying), hown [P], hcand [P] int64 sorted indices). Waits for the
     device once, to learn whether any row is hot, and once more for the
     pair count when one is."""
-    H = cfg.detect.hot_topup
-    m = qual.numel()
-    hot = cl.own & (qual > k)
-    hot_rank = torch.where(hot, qual.to(torch.float32),
-                           torch.full_like(qual, -1, dtype=torch.float32))
-    top_q, hot_rows = topk_low_index(hot_rank, min(H, m))
-    hot_valid = top_q > 0.0
-    covered = torch.zeros((m,), dtype=torch.bool, device=qual.device)
-    covered[hot_rows] = hot_valid
-    with span("tc.host_wait"):
-        rows = hot_rows[hot_valid]
+    covered, rows = _hot_rows(cl, cfg, qual, k)
     if rows.numel() == 0:
         empty = torch.zeros((0,), dtype=torch.int64, device=qual.device)
         return covered, empty.to(torch.float32), empty, empty
@@ -372,21 +383,42 @@ def fused_scene_precise(cl: CellList, cfg: SystemConfig,
                         topk=fused_topk) -> FusedSceneResult:
     """Precise mode: kernel survivor slots -> compaction to survivor_cap
     records -> sampled constant-acceleration sweep and risk -> scene
-    top-A. Only own rows' survivors are kept (see fused_scene_fast)."""
+    top-A. Only own rows' survivors are kept (see fused_scene_fast).
+
+    Rows with more stage-2 survivors than the k slots (hot rows, see
+    _hot_rows) have their whole stencil neighbourhood swept in place of
+    their slots, as fast mode's _hot_topup recomputes it, so a step with no
+    more than `hot_topup` such rows is complete. The JAX package has no such
+    top-up in precise mode: there every hot row counts in alert_overflow."""
     with span("tc.detect_kernel"):
         s = topk(cl, cfg, mode="survivors")
     keys, idx = s.keys, s.idx
     m, k = keys.shape
     own = cl.own
-    occupied = (idx >= 0) & own[:, None]
-    sel = torch.where(occupied, keys, torch.full_like(keys, KEY_NONE))
+    if cfg.detect.hot_topup > 0:
+        covered, rows = _hot_rows(cl, cfg, s.emitted, k)
+    else:
+        covered = torch.zeros((m,), dtype=torch.bool, device=keys.device)
+        rows = covered.new_zeros((0,), dtype=torch.int64)
+    live = own & ~covered
+    occupied = (idx >= 0) & live[:, None]
     cap = min(cfg.survivor_cap, m * k)
-    # the cap is a large share of the slots: a full stable sort is quicker
-    # here than a top-k of that size
-    top_key, top_flat = stable_topk(sel.reshape(-1), cap)
+    with span("tc.survivor_cut"):
+        sel = torch.where(occupied, keys, torch.full_like(keys, KEY_NONE))
+        # the cap is a large share of the slots: a full stable sort is
+        # quicker here than a top-k of that size
+        top_key, top_flat = stable_topk(sel.reshape(-1), cap)
+        own_slot = top_flat // k
+        cand_idx = idx.reshape(-1)[top_flat]
     svalid = top_key >= 0.0                 # survivor keys lie in [0, 1]
-    own_slot = top_flat // k
-    cand_idx = idx.reshape(-1)[top_flat]
+    if rows.numel():
+        # hot rows: every pair of their stencil neighbourhood joins the
+        # sweep after the compacted records, in their slots' place
+        with span("tc.hot_pairs"):
+            hown, hcand = stencil_pairs(cl, rows)
+        own_slot = torch.cat([own_slot, hown])
+        cand_idx = torch.cat([cand_idx.to(torch.int64), hcand])
+        svalid = torch.cat([svalid, torch.ones_like(hown, dtype=torch.bool)])
     ref = refine_pairs(cl, own_slot, cand_idx, cfg, mode="precise")
     hit = ref.hit & svalid
     zero = torch.zeros_like(ref.risk)
@@ -405,14 +437,14 @@ def fused_scene_precise(cl: CellList, cfg: SystemConfig,
     rank = torch.where(keep, ref.priority.to(torch.float32) * 2.0 + ref.risk,
                        torch.full_like(ref.risk, -1.0))
     top_rank, sel_i = topk_low_index(
-        rank, min(cfg.alerts.max_scene_alerts, cap))
+        rank, min(cfg.alerts.max_scene_alerts, rank.numel()))
     ref_a = RefinedPairs(**{f.name: getattr(ref, f.name)[sel_i]
                             for f in dataclasses.fields(RefinedPairs)})
     alerts = _alert_batch(top_rank >= 0.0, ref_a,
                           cfg.alerts.max_scene_alerts)
 
     n_surv = occupied.sum(dtype=torch.int32)
-    slot_overflow = torch.where(own, torch.clamp_min(s.emitted - k, 0),
+    slot_overflow = torch.where(live, torch.clamp_min(s.emitted - k, 0),
                                 torch.zeros_like(s.emitted)).sum(
                                     dtype=torch.int32)
     return FusedSceneResult(
