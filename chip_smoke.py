@@ -237,6 +237,9 @@ import statistics
 import subprocess
 import time
 
+from perfbench import roofline
+from perfbench.roofline import bound
+
 REPEATS = 10
 # Slot keys of the kernel against its plain version: both run the same f32
 # operations in the same order (the kernel is built with -fmad=false), so
@@ -273,19 +276,10 @@ DENSE_K = (1, 8, 16, 17, 24, 32)
 # bench.py's cap on an adopted survivor_k (bench.py:186)
 BENCH_K_MAX = 16
 
-# The card's peaks for the bounds (NVIDIA's H100 SXM data sheet):
-# device memory, and f32 outside the tensor cores (integer compares of the
-# co-sort are counted against the same rate).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
-# Operations per pair (2D, 3D), counted from the f32 expressions of the
-# plain versions (kernels/fused_detect.py _pair_math and
-# _predict_pair_math), a square root or a compare as one:
-#   walk      stage 1 of every candidate walked (differences, d^2, compare)
-#   stage2    closest approach of a stage-1 pair (relative motion, t*, the
-#             distance at t*, the safe distance, the four tests)
-#   hit_tail  stage 3 (closed-form crossing, snap to the dt lattice), stage
-#             4 (risk), priority and key of a stage-2 survivor
+# Operations per pair (2D, 3D) beyond perfbench/roofline.OPS (walk,
+# stage2, hit_tail), counted from the f32 expressions of the plain versions
+# (kernels/fused_detect.py _pair_math and _predict_pair_math), a square
+# root or a compare as one:
 #   surv_key  the survivor key 1 - cd^2/safe^2
 #   p_walk    predict stage 1 (distance of the current candidate to the
 #             predicted position, square root, compare)
@@ -296,9 +290,8 @@ PEAK_OPS_PER_S = 67e12
 #   s_sample  one sample of the precise tail's sweep (t^2, the position at
 #             t, the squared distance, its square root, the compare;
 #             perfbench/roofline_precise.SAMPLE_OPS)
-OPS = dict(walk=(6, 9), stage2=(38, 52), hit_tail=(85, 89), surv_key=(2, 2),
-           p_walk=(7, 10), p_setup=(21, 30), p_sample=(18, 25),
-           p_risk=(30, 32), s_sample=(14, 20))
+OPS = dict(roofline.OPS, surv_key=(2, 2), p_walk=(7, 10), p_setup=(21, 30),
+           p_sample=(18, 25), p_risk=(30, 32), s_sample=(14, 20))
 
 
 def emit(obj) -> None:
@@ -408,16 +401,6 @@ def compare_slots(got, want, k, torch) -> dict:
         raise AssertionError("slots are not bit-equal")
     return dict(checked=int(got.checked), emitted=res.pop("emitted"),
                 qual=int(got.qual.sum()), **res)
-
-
-def bound(n_bytes: float, n_ops: float) -> dict:
-    """The least time the card could take: the larger of the bytes over
-    the memory rate and the operations over the f32 rate."""
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS_PER_S * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=n_bytes, operations=n_ops)
 
 
 def pair_work(cl, cfg, pos, cells, torch) -> tuple:
@@ -834,10 +817,6 @@ def certified(cfg, run):
         worst, res = run(cfg)
         tries += 1
     return cfg, worst, res, tries
-
-
-# the rule's name from before it took fast cells
-certified_precise = certified
 
 
 def timed_steps(advance, torch) -> tuple:
@@ -4657,6 +4636,7 @@ def main() -> None:
                                  "from torch.sort's")
         n = ops[0].numel()
         npad = ceil_pow2(n)
+        # the network's integer compares count against the f32 rate
         b = bound(2 * len(ops) * 4 * n,
                   npad // 2 * len(network_stages(npad)))
         line = dict(

@@ -251,10 +251,10 @@ def test_wide_oids_and_counter_through_the_fused_step(mode):
 # ---- chip_smoke's certificate rule ----------------------------------------
 
 def test_certified_precise_adopts_k_and_cap():
-    """chip_smoke.certified_precise against a scripted run: survivor_k
-    rises by the counted shortfall up to K_MAX, the survivor cap doubles
-    alongside, at most twice; a cell that stays uncertified is returned
-    with its certificate for the caller to refuse."""
+    """chip_smoke.certified on a precise cell, against a scripted run:
+    survivor_k rises by the counted shortfall up to K_MAX, the survivor cap
+    doubles alongside, at most twice; a cell that stays uncertified is
+    returned with its certificate for the caller to refuse."""
     import chip_smoke as cs
     cfg = tt.SystemConfig(num_objects=1000, detect=tt.DetectionConfig(
         mode="precise"))
@@ -268,15 +268,15 @@ def test_certified_precise_adopts_k_and_cap():
             return next(it), "out"
         return run
 
-    got, ao, out, tries = cs.certified_precise(cfg, run_with([4, 0]))
+    got, ao, out, tries = cs.certified(cfg, run_with([4, 0]))
     assert (ao, out, tries) == (0, "out", 2)
     assert seen == [(8, 4096), (12, 8192)]
     assert got.detect.survivor_k == 12 and got.survivor_cap == 8192
     seen.clear()
-    got, ao, _, tries = cs.certified_precise(cfg, run_with([0]))
+    got, ao, _, tries = cs.certified(cfg, run_with([0]))
     assert got is cfg and ao == 0 and tries == 1
     seen.clear()
-    got, ao, _, tries = cs.certified_precise(cfg, run_with([100, 7, 3]))
+    got, ao, _, tries = cs.certified(cfg, run_with([100, 7, 3]))
     assert seen == [(8, 4096), (16, 8192), (16, 16384)]
     assert (ao, tries) == (3, 3) and got.detect.survivor_k == 16
 

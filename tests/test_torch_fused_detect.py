@@ -189,7 +189,7 @@ def test_param_block_follows_the_config():
 
 
 def test_launch_refuses_wrong_tensors():
-    from tpu_collide_torch.kernels.fused_detect import _check_inputs
+    from tpu_collide_torch.kernels._build import _check_inputs
     dev = torch.device("cpu")
     good = torch.zeros((4, 16), dtype=torch.float32)
     _check_inputs("fused_topk", dev, (("fields", good, torch.float32,

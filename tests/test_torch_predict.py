@@ -31,7 +31,9 @@ from tpu_collide_torch.api.scene import _predict_device, _predict_device_fused
 from tpu_collide_torch.core.ops import stable_topk
 from tpu_collide_torch.detect import predict as tpred
 from tpu_collide_torch.engine import grid_overflow
-from tpu_collide_torch.index.grid import build_grid
+from tpu_collide_torch.index.grid import (build_grid, cell_coords,
+                                          gather_candidates)
+from tpu_collide_torch.kernels import refine
 from tpu_collide_torch.kernels.cell_list import FI, build_cell_list
 from tpu_collide_torch.kernels.fused_detect import (predict_topk,
                                                     predict_topk_plain)
@@ -321,6 +323,43 @@ def test_predict_collisions_matches_jax(name):
     got = tpred.predict_collisions(st, th, index, tcfg,
                                    horizon=HORIZON.get(name, 5.0), step=0.5)
     _assert_maps_equal(_np(got), _jax_predict(name))
+
+
+@pytest.mark.parametrize("name", ["classes", "dense3d"])
+def test_predict_collisions_equals_predict_pairs(monkeypatch, name):
+    """The grid path (predict_collisions, [N, K] tables) and the fused
+    tail's recompute (refine._predict_pairs, [P] record lists) give the same
+    bits on the same (own, candidate) pairs at one offset: the grid
+    candidates of each object's predicted cell, mapped to sorted rows
+    through the cell list's order, merged by the same merge_pair_risks."""
+    _, tcfg, st, th = _port_inputs(name)
+    offset, n = 1.5, st.n
+    monkeypatch.setattr(tpred, "predict_offsets", lambda *_: [offset])
+    index = build_grid(st.pos, st.alive, tcfg)
+    t = torch.tensor(offset, dtype=torch.float32)
+    cls = tpred.classify_trajectories(th)
+    pred = tpred.class_advance(st.pos, st.vel, st.acc, cls, t)
+    cand, ok = gather_candidates(index, cell_coords(pred, tcfg), tcfg)
+    merge_k = cand.shape[1]           # one offset: no pair is cut or merged
+    want = tpred.predict_collisions(st, th, index, tcfg, horizon=2.0,
+                                    step=0.5, merge_k=merge_k)
+    ok = ok & (cand != torch.arange(n)[:, None])
+    at = ok.nonzero(as_tuple=True)
+    cl = build_cell_list(st, tcfg, cls=cls)
+    inv = torch.empty_like(cl.order)
+    inv[cl.order] = torch.arange(n)
+    other, *vals = refine._predict_pairs(
+        cl, inv[at[0]], inv[cand[at].to(torch.int64)],
+        t.expand(at[0].numel()), tcfg, sub_window=1.0)
+    assert torch.equal(other, cand[at])
+    assert int(vals[0].sum()) > 20       # not vacuous
+    cols = [cand.clone()] + [torch.full(cand.shape, fill, dtype=v.dtype)
+                             for v, fill in zip(vals, refine._POOL_FILL[1:])]
+    for col, v in zip(cols[1:], vals):
+        col[at] = v
+    got = tpred.merge_pair_risks(*cols, merge_k)
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
 
 
 # ---- the kernel path (the predict kernel's plain version) ---------------

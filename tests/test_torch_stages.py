@@ -1,6 +1,8 @@
 """The port's stage functions (detect/pipeline.py) against the JAX stage
 functions and the NumPy oracle of the reference math (tests/oracle.py), in
 both sign conventions and both angle forms, and the head-on probe."""
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,10 +15,12 @@ from tpu_collide_torch.core.config import (DetectionConfig, SystemConfig,
 from tpu_collide_torch.core.state import state_from_numpy
 from tpu_collide_torch.detect import pipeline as tp
 from tpu_collide_torch.engine import detect_and_alerts_fused
+from tpu_collide_torch.index.grid import build_grid, gather_candidates
 from tpu_collide_torch.kernels.cell_list import build_cell_list
 from tpu_collide_torch.kernels.refine import refine_pairs
 from tests.oracle import oracle_detect_all
 from tests.test_detect_parity import make_fleet
+from tests.torch_parity import np_fleet
 
 torch.set_num_threads(1)
 
@@ -144,6 +148,48 @@ def test_refined_stages_match_oracle(convention, angle_form):
         assert abs(t1 - t0) < 1e-5, (key, t0, t1)
         assert abs(r1 - r0) < 2e-3, (key, r0, r1)
         assert abs(d1 - d0) < 1e-2, (key, d0, d1)
+
+
+@pytest.mark.parametrize("is3d", [False, True])
+@pytest.mark.parametrize("convention", ["physical", "reference"])
+@pytest.mark.parametrize("mode", ["fast", "precise"])
+def test_detect_rows_equals_refine_rows(mode, convention, is3d):
+    """The reference-shaped path (detect_rows, [N, K] tables) and the fused
+    tail's recompute (refine_rows, [P] record lists) give the same bits on
+    the same (own, candidate) pairs: the grid candidates' valid entries,
+    mapped to sorted rows through the cell list's order. In precise mode
+    every stage-2 survivor fits the cap, so detect_rows sweeps them all."""
+    n = 300
+    hi = (300.0, 300.0, 30.0) if is3d else (600.0, 600.0, 0.0)
+    d = np_fleet(11, n, hi[0], is3d=is3d, accel=True, dead=7)
+    d["pos"][:, 2] *= 0.1       # 3D: a 30 m deep world, pairs in reach
+    st = state_from_numpy(d["pos"], d["vel"], d["acc"], d["heading"],
+                          d["size"], d["otype"], alive=d["alive"],
+                          device="cpu")
+    cfg = SystemConfig(num_objects=n, world=WorldConfig(hi=hi),
+                       grid=GridConfig(cell_size=100.0, cell_capacity=64),
+                       detect=DetectionConfig(mode=mode,
+                                              convention=convention))
+    index = build_grid(st.pos, st.alive, cfg)
+    rows = torch.arange(n)
+    cand, ok = gather_candidates(index, index.cell3, cfg)
+    ok = ok & (cand != rows[:, None])
+    at = ok.nonzero(as_tuple=True)
+    # a cap of one record a pair: every stage-2 survivor is swept
+    cfg = cfg.replace(detect=dataclasses.replace(
+        cfg.detect, precise_survivor_cap=at[0].numel()))
+    table = tp.detect_rows(st, index, cfg, rows)
+    assert int(table.survivor_overflow) == 0
+    cl = build_cell_list(st, cfg)
+    inv = torch.empty_like(cl.order)
+    inv[cl.order] = torch.arange(n)
+    own = inv[at[0]]
+    other = inv[cand[at].to(torch.int64)]
+    ref = refine_pairs(cl, own, other, cfg, mode)
+    assert int(ref.hit.sum()) > 20       # not vacuous
+    assert torch.equal(table.valid[at], ref.hit)
+    for f in ("risk", "ttc", "distance", "rel_speed", "col_pos"):
+        assert torch.equal(getattr(table, f)[at], getattr(ref, f)), f
 
 
 def _head_on():

@@ -11,13 +11,16 @@ tpu_collide/detect/pipeline.py).
 
 `detect_pairs` / `detect_rows` run the stages over each object's grid
 candidates ([N, K] tables, the reference-shaped path of engine.step). The
-refine tail (kernels/refine.py) runs the stage functions on the few pairs
-that become alerts; the fused kernel carries its own copy of the stage math
-in the kernel's order (kernels/fused_detect.py).
+refine tail (kernels/refine.py) runs them on the few pairs that become
+alerts ([P] lists). Both take stages 1-2 from `pair_stage2` and stage 4 and
+the alert payload from `pair_payload`, and run stage 3 between the two; the
+fused kernel carries its own copy of the stage math in the kernel's order
+(kernels/fused_detect.py).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
@@ -27,6 +30,7 @@ from tpu_collide_torch.core.ops import stable_topk
 from tpu_collide_torch.core.state import ObjectState
 from tpu_collide_torch.core.utils import span
 from tpu_collide_torch.index.grid import GridIndex, gather_candidates
+from tpu_collide_torch.kernels._build import _check_inputs, launch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,8 +120,6 @@ def precise_sweep_kernel(rel_pos, rel_vel, rel_acc, safe, det):
     """_precise_sweep as one launch of csrc/precise_sweep.cu on the card:
     a thread a record, each swept in registers to its first hit. Counts
     each launch in `precise_sweep_kernel.launches`."""
-    from tpu_collide_torch.kernels.fused_detect import (_check_inputs,
-                                                        _library, _on_device)
     dev = rel_pos.device
     lead = tuple(rel_pos.shape[:-1])
     dims = rel_pos.shape[-1] if rel_pos.dim() else 0
@@ -137,17 +139,10 @@ def precise_sweep_kernel(rel_pos, rel_vel, rel_acc, safe, det):
     p = safe.numel()
     if p == 0:
         return hit, t_hit, d_hit
-    lib = _library()
-    with _on_device(dev):
-        rc = lib.tc_precise_sweep(
-            rel_pos.data_ptr(), rel_vel.data_ptr(), rel_acc.data_ptr(),
-            safe.data_ptr(), p, dims, steps, det.time_step, hit.data_ptr(),
-            t_hit.data_ptr(), d_hit.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"precise_sweep kernel launch failed: CUDA error {rc} "
-            f"({lib.tc_error_string(rc).decode()})")
+    launch("precise_sweep", "tc_precise_sweep", dev,
+           rel_pos.data_ptr(), rel_vel.data_ptr(), rel_acc.data_ptr(),
+           safe.data_ptr(), p, dims, steps, det.time_step, hit.data_ptr(),
+           t_hit.data_ptr(), d_hit.data_ptr())
     precise_sweep_kernel.launches += 1
     return hit, t_hit, d_hit
 
@@ -215,12 +210,92 @@ def _risk_score(dist_hit, t_hit, rel_speed, heading_i, heading_j,
     return torch.clamp(risk, 0.0, 1.0)
 
 
+class PairSide(NamedTuple):
+    """One side of a set of pairs, as tensors that broadcast against the
+    other side's: [P] lists, or [Q, 1] against [Q, K] tables (pos, vel and
+    acc with a last dimension of 3). `alive` is False for a dead object or
+    a table's padding entry; two sides with equal `id` are one object."""
+    pos: torch.Tensor
+    vel: torch.Tensor
+    acc: torch.Tensor
+    size: torch.Tensor
+    heading: torch.Tensor
+    otype: torch.Tensor
+    alive: torch.Tensor
+    id: torch.Tensor
+
+
+class Stage2(NamedTuple):
+    """The terms of pairs (o, c) after stages 1-2 (pair_stage2)."""
+    rel_pos: torch.Tensor    # c.pos - o.pos
+    sep_vel: torch.Tensor    # c.vel - o.vel
+    sep_acc: torch.Tensor    # c.acc - o.acc
+    rel_speed: torch.Tensor  # |sep_vel|
+    safe: torch.Tensor       # the pair's safe distance
+    ok1: torch.Tensor        # stage 1: alive, distinct, within search_radius
+    pass2: torch.Tensor      # stages 1 and 2
+
+
+def pair_stage2(o: PairSide, c: PairSide, det) -> Stage2:
+    """Stages 1-2 of pairs (o, c): both alive, distinct and within
+    search_radius; then the rel-speed floor and the closest approach of
+    s(t) = rel_pos + sep_vel t + sep_acc t^2 / 2 within the window and the
+    safe distance."""
+    rel_pos = c.pos - o.pos
+    ok1 = (o.alive & c.alive & (o.id != c.id)
+           & (_norm(rel_pos) <= det.search_radius))
+    sep_vel = c.vel - o.vel
+    sep_acc = c.acc - o.acc
+    rel_speed = _norm(sep_vel)
+    safe = _pair_safe_distance(o.size, c.size, det)
+    # 'reference' keeps the reference's sign bug (DEVIATIONS.md #1)
+    conv = 1.0 if det.convention == "physical" else -1.0
+    dot = conv * torch.sum(rel_pos * sep_vel, dim=-1)
+    rs2 = torch.where(rel_speed > 0, rel_speed * rel_speed,
+                      torch.ones_like(rel_speed))
+    t_star = -dot / rs2
+    closest = _dist_at_time(rel_pos, sep_vel, sep_acc, t_star)
+    pass2 = (ok1 & (rel_speed >= det.min_relative_speed)
+             & (t_star >= 0.0) & (t_star <= det.time_window)
+             & (closest <= safe))
+    return Stage2(rel_pos, sep_vel, sep_acc, rel_speed, safe, ok1, pass2)
+
+
+def pair_payload(o: PairSide, c: PairSide, s2: Stage2, hit, t_hit, d_hit,
+                 det) -> dict:
+    """Stage 4 of pairs (o, c) whose stage 3 gave (hit, t_hit, d_hit), as
+    {risk, ttc, distance, rel_speed, col_pos}: risk and rel_speed 0, ttc
+    and distance (at collision time) inf where no hit; col_pos [..., 3] the
+    midpoint of the two predicted positions at t_hit (at t = 0 where no
+    hit)."""
+    zero = torch.zeros_like(t_hit)
+    t_h = torch.where(hit, t_hit, zero)[..., None]
+    fut_o = o.pos + o.vel * t_h + 0.5 * o.acc * t_h * t_h
+    fut_c = c.pos + c.vel * t_h + 0.5 * c.acc * t_h * t_h
+    col_pos = 0.5 * (fut_o + fut_c)
+    risk = _risk_score(torch.where(hit, d_hit, zero),
+                       torch.where(hit, t_hit, zero), s2.rel_speed,
+                       o.heading, c.heading, o.otype, c.otype, s2.safe, det)
+    inf = torch.full_like(t_hit, float("inf"))
+    return dict(risk=torch.where(hit, risk, zero),
+                ttc=torch.where(hit, t_hit, inf),
+                distance=torch.where(hit, d_hit, inf),
+                rel_speed=torch.where(hit, s2.rel_speed, zero),
+                col_pos=col_pos)
+
+
 def detect_pairs(state: ObjectState, index: GridIndex,
                  cfg: SystemConfig) -> PairRisks:
     """Stages 1-4 for every alive object against its grid candidates."""
     return detect_rows(state, index, cfg,
                        torch.arange(state.n, dtype=torch.int64,
                                     device=state.device))
+
+
+# detect_rows packs each object's fields into one [N, 13] f32 record
+# (otype and alive cast exactly), so that each side takes one row gather
+_POS, _VEL, _ACC = slice(0, 3), slice(3, 6), slice(6, 9)
+_SIZE, _HEADING, _OTYPE, _ALIVE = 9, 10, 11, 12
 
 
 def detect_rows(state: ObjectState, index: GridIndex, cfg: SystemConfig,
@@ -234,68 +309,43 @@ def detect_rows(state: ObjectState, index: GridIndex, cfg: SystemConfig,
     dev = state.device
     rows = rows.to(torch.int64)
 
-    # ---- stage 1: spatial filtering ----
     cand, cand_ok = gather_candidates(index, index.cell3[rows], cfg)
-    cand_ok = cand_ok & (cand != rows[:, None])
-
-    # the per-object fields packed into one [N, 13] matrix, one row gather
-    # per side (otype and alive cast exactly to f32)
-    fmat = torch.cat(
+    rec = torch.cat(
         [state.pos, state.vel, state.acc, state.size[:, None],
          state.heading[:, None], state.otype.to(torch.float32)[:, None],
          state.alive.to(torch.float32)[:, None]], dim=1)
-    fo = fmat[rows][:, None, :]              # [Q, 1, 13]
-    fc = fmat[cand.to(torch.int64)]          # [Q, K, 13]
-
-    cand_ok = cand_ok & (fc[..., 12] > 0.5) & (fo[..., 12] > 0.5)
+    fo = rec[rows][:, None, :]               # [Q, 1, 13]
+    fc = rec[cand.to(torch.int64)]           # [Q, K, 13]
+    alive_o = fo[..., _ALIVE] > 0.5
     if row_valid is not None:
-        cand_ok = cand_ok & row_valid[:, None]
-
-    pos_i, pos_j = fo[..., 0:3], fc[..., 0:3]
-    cand_ok = cand_ok & (_norm(pos_j - pos_i) <= det.search_radius)
-
-    # ---- stage 2: temporal filtering ----
-    vel_i, vel_j = fo[..., 3:6], fc[..., 3:6]
-    acc_i, acc_j = fo[..., 6:9], fc[..., 6:9]
-    rel_vel = vel_i - vel_j                  # vehicle minus other
-    rel_pos = pos_j - pos_i                  # other minus vehicle
-    rel_speed = _norm(rel_vel)
-    safe = _pair_safe_distance(fo[..., 9], fc[..., 9], det)
-
-    # closest approach of s(t) = rel_pos + (v_j - v_i) t; 'reference' keeps
-    # the reference's sign bug (DEVIATIONS.md #1)
-    sep_vel = vel_j - vel_i
-    sep_acc = acc_j - acc_i
-    conv = 1.0 if det.convention == "physical" else -1.0
-    dot = conv * torch.sum(rel_pos * sep_vel, dim=-1)
-    rs2 = torch.where(rel_speed > 0, rel_speed * rel_speed,
-                      torch.ones_like(rel_speed))
-    t_star = -dot / rs2
-    closest = _dist_at_time(rel_pos, sep_vel, sep_acc, t_star)
-    pass2 = (cand_ok
-             & (rel_speed >= det.min_relative_speed)
-             & (t_star >= 0.0)
-             & (t_star <= det.time_window)
-             & (closest <= safe))
+        alive_o = alive_o & row_valid[:, None]
+    side = lambda f, alive, ids: PairSide(
+        pos=f[..., _POS], vel=f[..., _VEL], acc=f[..., _ACC],
+        size=f[..., _SIZE], heading=f[..., _HEADING], otype=f[..., _OTYPE],
+        alive=alive, id=ids)
+    o = side(fo, alive_o, rows[:, None])
+    c = side(fc, cand_ok & (fc[..., _ALIVE] > 0.5), cand)
+    s2 = pair_stage2(o, c, det)
 
     # ---- stage 3 ----
     surv_overflow = torch.zeros((), dtype=torch.int32, device=dev)
     if det.mode == "fast":
-        hit, t_hit, d_hit = _fast_first_crossing(rel_pos, sep_vel, safe, det)
-        hit = hit & pass2
+        hit, t_hit, d_hit = _fast_first_crossing(s2.rel_pos, s2.sep_vel,
+                                                 s2.safe, det)
+        hit = hit & s2.pass2
     else:
         # the sampled sweep runs on the first `cap` stage-2 survivors in
         # index order (jax.lax.top_k of the 0/1 mask breaks ties by the
         # lower index; stable_topk does the same)
-        q, k = pass2.shape
+        q, k = s2.pass2.shape
         cap = min(cfg.survivor_cap, q * k)
-        flat2 = pass2.reshape(-1)
+        flat2 = s2.pass2.reshape(-1)
         surv_overflow = torch.clamp_min(
             flat2.sum(dtype=torch.int32) - cap, 0)
         _, surv_idx = stable_topk(flat2.to(torch.int32), cap)
         g = lambda a: a.reshape(q * k, *a.shape[2:])[surv_idx]
-        s_hit, s_t, s_d = _precise_sweep(g(rel_pos), g(sep_vel), g(sep_acc),
-                                         g(safe), det)
+        s_hit, s_t, s_d = _precise_sweep(g(s2.rel_pos), g(s2.sep_vel),
+                                         g(s2.sep_acc), g(s2.safe), det)
         s_hit = s_hit & flat2[surv_idx]
         inf = torch.full_like(s_t, float("inf"))
         hit = torch.zeros(q * k, dtype=torch.bool, device=dev)
@@ -306,25 +356,9 @@ def detect_rows(state: ObjectState, index: GridIndex, cfg: SystemConfig,
         d_hit[surv_idx] = torch.where(s_hit, s_d, inf)
         hit, t_hit, d_hit = (x.reshape(q, k) for x in (hit, t_hit, d_hit))
 
-    # collision position: midpoint of the two predicted positions
-    zero = torch.zeros_like(t_hit)
-    t_h = torch.where(hit, t_hit, zero)[..., None]
-    fut_i = pos_i + vel_i * t_h + 0.5 * acc_i * t_h * t_h
-    fut_j = pos_j + vel_j * t_h + 0.5 * acc_j * t_h * t_h
-    col_pos = 0.5 * (fut_i + fut_j)
-
-    # ---- stage 4: risk assessment ----
-    risk = _risk_score(torch.where(hit, d_hit, zero),
-                       torch.where(hit, t_hit, zero), rel_speed,
-                       fo[..., 10], fc[..., 10], fo[..., 11], fc[..., 11],
-                       safe, det)
-    inf = torch.full_like(t_hit, float("inf"))
     return PairRisks(
-        other=cand, valid=hit, risk=torch.where(hit, risk, zero),
-        ttc=torch.where(hit, t_hit, inf),
-        distance=torch.where(hit, d_hit, inf),
-        rel_speed=torch.where(hit, rel_speed, zero),
-        col_pos=col_pos,
+        other=cand, valid=hit,
+        **pair_payload(o, c, s2, hit, t_hit, d_hit, det),
         survivor_overflow=surv_overflow.to(torch.int32),
-        num_checked=cand_ok.sum(dtype=torch.int32),
+        num_checked=s2.ok1.sum(dtype=torch.int32),
     )

@@ -18,7 +18,8 @@ tpu_collide/detect/predict.py, the CollisionPredictionModel analog).
     entry per other object, at its max risk.
 
 `predict_collisions` is the reference-shaped path over the grid
-(index/grid.py); kernels/refine.fused_predict is the kernel path.
+(index/grid.py); kernels/refine.fused_predict is the kernel path. Both
+score their pairs with `predict_pair_risks`.
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ from tpu_collide_torch.core.config import SystemConfig
 from tpu_collide_torch.core.device import resolve_device
 from tpu_collide_torch.core.ops import stable_topk
 from tpu_collide_torch.core.state import ObjectState
-from tpu_collide_torch.detect.pipeline import (_norm, _pair_safe_distance,
+from tpu_collide_torch.detect.pipeline import (PairSide, _norm,
+                                               _pair_safe_distance,
                                                _precise_sweep, _risk_score)
 from tpu_collide_torch.index.grid import (GridIndex, cell_coords,
                                           gather_candidates)
@@ -190,6 +192,33 @@ def sub_window_config(det, sub_window: float):
     return dataclasses.replace(det, time_window=sub_window)
 
 
+def predict_pair_risks(o: PairSide, c: PairSide, pred, t, det, sub_det):
+    """(hit, risk, ttc, dist) of pairs (o, c) at offset t (broadcasting
+    against the sides' scalars): the own object at its class-predicted
+    position `pred`, the candidate advanced to t under constant
+    acceleration (reference _detect_at_position :808-812), the stage-1
+    radius on the candidate's CURRENT position (the reference's quirk of
+    querying today's index with tomorrow's position, :800-803), the sampled
+    sweep over sub_det's window and the stage-4 risk. risk 0, ttc (counted
+    from now, t_hit + t) and dist inf where no hit."""
+    tb = t[..., None]
+    o_pos = c.pos + c.vel * tb + 0.5 * c.acc * tb * tb
+    ok = (o.alive & c.alive & (o.id != c.id)
+          & (_norm(c.pos - pred) <= det.search_radius))
+    safe = _pair_safe_distance(o.size, c.size, det)
+    sep_vel = c.vel - o.vel
+    hit, t_hit, d_hit = _precise_sweep(o_pos - pred, sep_vel, c.acc - o.acc,
+                                       safe, sub_det)
+    hit = hit & ok
+    zero = torch.zeros_like(t_hit)
+    inf = torch.full_like(t_hit, float("inf"))
+    risk = _risk_score(torch.where(hit, d_hit, zero),
+                       torch.where(hit, t_hit, zero), _norm(sep_vel),
+                       o.heading, c.heading, o.otype, c.otype, safe, det)
+    return (hit, torch.where(hit, risk, zero),
+            torch.where(hit, t_hit + t, inf), torch.where(hit, d_hit, inf))
+
+
 def predict_collisions(state: ObjectState, hist: TrajectoryHistory,
                        index: GridIndex, cfg: SystemConfig,
                        horizon: float = 10.0, step: float = 0.5,
@@ -204,37 +233,21 @@ def predict_collisions(state: ObjectState, hist: TrajectoryHistory,
     dev = state.device
     cls = classify_trajectories(hist)
     sub_det = sub_window_config(det, sub_window)
-    self_idx = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
+    rows = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
+    side = lambda i, alive, ids: PairSide(
+        pos=state.pos[i], vel=state.vel[i], acc=state.acc[i],
+        size=state.size[i], heading=state.heading[i],
+        otype=state.otype[i], alive=alive, id=ids)
+    own = side(np.s_[:, None], state.alive[:, None], rows)
     cols = []
     for o in predict_offsets(horizon, step):
         offset = torch.tensor(o, dtype=torch.float32, device=dev)
-        # own object at its class-predicted position; the spatial filter
-        # uses the CURRENT grid (reference quirk, :800-803)
         pred_pos = _predicted_position(state, cls, offset)
         cand, ok = gather_candidates(index, cell_coords(pred_pos, cfg), cfg)
         c = cand.to(torch.int64)
-        ok = ok & (cand != self_idx) & state.alive[c] & state.alive[:, None]
-        # neighbours advanced to the same offset under constant
-        # acceleration (reference _detect_at_position :808-812)
-        o_pos = (state.pos[c] + state.vel[c] * offset
-                 + 0.5 * state.acc[c] * offset * offset)
-        ok = ok & (_norm(state.pos[c] - pred_pos[:, None, :])
-                   <= det.search_radius)
-        safe = _pair_safe_distance(state.size[:, None], state.size[c], det)
-        sep_vel = state.vel[c] - state.vel[:, None, :]
-        hit, t_hit, d_hit = _precise_sweep(
-            o_pos - pred_pos[:, None, :], sep_vel,
-            state.acc[c] - state.acc[:, None, :], safe, sub_det)
-        hit = hit & ok
-        zero = torch.zeros_like(t_hit)
-        inf = torch.full_like(t_hit, float("inf"))
-        risk = _risk_score(torch.where(hit, d_hit, zero),
-                           torch.where(hit, t_hit, zero), _norm(sep_vel),
-                           state.heading[:, None], state.heading[c],
-                           state.otype[:, None], state.otype[c], safe, det)
-        cols.append((cand, hit, torch.where(hit, risk, zero),
-                     torch.where(hit, t_hit + offset, inf),
-                     torch.where(hit, d_hit, inf)))
+        cols.append((cand,) + predict_pair_risks(
+            own, side(c, ok & state.alive[c], cand), pred_pos[:, None, :],
+            offset, det, sub_det))
     # per offset [N, K] -> [N, P*K], offset-major columns
     merged = [torch.cat([col[j] for col in cols], dim=1) for j in range(5)]
     return merge_pair_risks(*merged, merge_k)

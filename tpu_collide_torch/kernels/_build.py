@@ -1,15 +1,22 @@
-"""Builds the package's CUDA kernels with nvcc at first use and loads them
-with ctypes.
+"""Builds the package's CUDA kernels with nvcc at first use, loads them
+with ctypes and launches them.
 
 The sources under tpu_collide_torch/csrc/ compile into one shared library
 with a plain C interface (no PyTorch headers, so the build takes seconds):
 one nvcc per .cu file, all started together, then one link.
 The library lands in tpu_collide_torch/_build/, named by a hash of the
 sources and flags, so a process builds it at most once and a changed source
-never loads a stale library. Nothing here runs at import time.
+never loads a stale library. Nothing here runs at import time, and nothing
+of the package is imported here.
+
+Every kernel wrapper checks its tensors with `_check_inputs` and calls its
+C entry point through `launch`, which looks `load_library` up at each call:
+a tool that swaps `load_library` for another build of the sources reaches
+every launch.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -17,6 +24,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -141,3 +150,37 @@ def open_library(csrc: Path) -> ctypes.CDLL:
     lib.tc_error_string.argtypes = [ci]
     lib.tc_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _on_device(dev):
+    """A context in which `dev` is the current CUDA device; nothing to
+    switch where it already is."""
+    if torch.cuda.current_device() == dev.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def _check_inputs(who: str, dev, tensors) -> None:
+    """Raises ValueError unless each (name, tensor, dtype, shape) of
+    `tensors` is a contiguous tensor of that dtype and shape on `dev`."""
+    for name, t, dtype, shape in tensors:
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"{who}: {name} must be a contiguous {dtype} tensor of "
+                f"shape {shape} on {dev}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}")
+
+
+def launch(who: str, entry: str, dev, *args) -> None:
+    """Calls the library's C entry point `entry` with `args` and the
+    current stream of CUDA device `dev`, on that device; raises
+    RuntimeError, naming `who`, when it returns a CUDA error."""
+    lib = load_library()
+    with _on_device(dev):
+        rc = getattr(lib, entry)(*args,
+                                 torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"{who} kernel launch failed: CUDA error {rc} "
+            f"({lib.tc_error_string(rc).decode()})")

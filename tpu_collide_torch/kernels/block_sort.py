@@ -33,6 +33,8 @@ import ctypes
 
 import torch
 
+from tpu_collide_torch.kernels import _build
+
 INT32_MAX = 2 ** 31 - 1
 MAX_PAYLOADS = 32            # csrc/block_sort.cu MAX_PAYLOADS
 MAX_PAD = 1 << 30            # the kernel's largest padded length
@@ -144,13 +146,10 @@ co_sort.launches = 0
 def kernel_launches(n: int) -> int:
     """The device launches one co_sort of n > 0 elements makes, as the built
     library counts them (len(launch_plan(npad)))."""
-    from tpu_collide_torch.kernels._build import load_library
-    return load_library().tc_co_sort_launches(max(2, ceil_pow2(n)))
+    return _build.load_library().tc_co_sort_launches(max(2, ceil_pow2(n)))
 
 
 def _launch(ops) -> tuple:
-    from tpu_collide_torch.kernels._build import load_library
-
     n = ops[0].shape[0]
     dev = ops[0].device
     ops = [x if x.is_contiguous() else x.contiguous() for x in ops]
@@ -176,16 +175,9 @@ def _launch(ops) -> tuple:
         *[x.data_ptr() for x in ops[1:]])
     dst = (ctypes.c_void_p * max(1, n_pay))(
         *[x.data_ptr() for x in outs[1:]])
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.tc_co_sort(ops[0].data_ptr(), n, npad, n_pay, src, dst,
-                            outs[0].data_ptr(), keys.data_ptr(),
-                            pos.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"co_sort kernel launch failed: CUDA error {rc} "
-            f"({lib.tc_error_string(rc).decode()})")
+    _build.launch("co_sort", "tc_co_sort", dev, ops[0].data_ptr(), n, npad,
+                  n_pay, src, dst, outs[0].data_ptr(), keys.data_ptr(),
+                  pos.data_ptr())
     return tuple(outs)
 
 

@@ -30,7 +30,6 @@ same for the predict mode.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import dataclasses
 
@@ -39,6 +38,8 @@ import torch
 
 from tpu_collide_torch.core.config import SystemConfig
 from tpu_collide_torch.detect.predict import class_advance
+from tpu_collide_torch.kernels import _build
+from tpu_collide_torch.kernels._build import _check_inputs, launch
 from tpu_collide_torch.kernels.cell_list import (CellList, FI, NF, flat_cells,
                                                  stencil_pairs, stencil_runs)
 
@@ -186,35 +187,16 @@ param_block = _block_cache(PARAM_NAMES, kernel_params)
 _CHECKED_LIBS: set = set()
 
 
-def _library():
-    """The kernel library, its parameter counts checked once."""
-    from tpu_collide_torch.kernels._build import load_library
-    lib = load_library()
+def _check_param_counts() -> None:
+    """Raises unless the library's kernels read as many f32 constants as
+    PARAM_NAMES and PRED_PARAM_NAMES list; checked once per library."""
+    lib = _build.load_library()
     if lib not in _CHECKED_LIBS:
         if lib.tc_param_count() != len(PARAM_NAMES) \
                 or lib.tc_pred_param_count() != len(PRED_PARAM_NAMES):
             raise RuntimeError("csrc/fused_detect.cu, csrc/fused_predict.cu "
                                "and PARAM_NAMES / PRED_PARAM_NAMES disagree")
         _CHECKED_LIBS.add(lib)
-    return lib
-
-
-def _on_device(dev):
-    """A context in which `dev` is the current CUDA device; nothing to
-    switch where it already is."""
-    if torch.cuda.current_device() == dev.index:
-        return contextlib.nullcontext()
-    return torch.cuda.device(dev)
-
-
-def _check_inputs(who: str, dev, tensors) -> None:
-    for name, t, dtype, shape in tensors:
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(
-                f"{who}: {name} must be a contiguous {dtype} tensor of "
-                f"shape {shape} on {dev}, got {t.dtype} {tuple(t.shape)} on "
-                f"{t.device}")
 
 
 def _launch(cl: CellList, cfg: SystemConfig, mode: str, k: int) -> Slots:
@@ -232,21 +214,15 @@ def _launch(cl: CellList, cfg: SystemConfig, mode: str, k: int) -> Slots:
     qual = torch.empty((n,), dtype=torch.int32, device=dev)
     checked = (torch.zeros((), dtype=torch.int64, device=dev) if count
                else torch.full((), -1, dtype=torch.int64, device=dev))
-    lib = _library()
-    with _on_device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.tc_fused_topk(
-            cl.fields.data_ptr(), cl.cell.data_ptr(),
-            cl.cell_start.data_ptr(), n, nx, ny, nz, int(cl.is3d), k,
-            int(mode == "hits"), int(count),
-            int(cfg.detect.angle_form == "product"),
-            ctypes.cast(param_block(cfg), ctypes.c_void_p),
-            keys.data_ptr(), idx.data_ptr(), emitted.data_ptr(),
-            qual.data_ptr(), checked.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"fused_topk kernel launch failed: CUDA error {rc} "
-            f"({lib.tc_error_string(rc).decode()})")
+    _check_param_counts()
+    launch("fused_topk", "tc_fused_topk", dev,
+           cl.fields.data_ptr(), cl.cell.data_ptr(),
+           cl.cell_start.data_ptr(), n, nx, ny, nz, int(cl.is3d), k,
+           int(mode == "hits"), int(count),
+           int(cfg.detect.angle_form == "product"),
+           ctypes.cast(param_block(cfg), ctypes.c_void_p),
+           keys.data_ptr(), idx.data_ptr(), emitted.data_ptr(),
+           qual.data_ptr(), checked.data_ptr())
     return Slots(keys=keys, idx=idx, checked=checked, emitted=emitted,
                  qual=qual)
 
@@ -502,20 +478,14 @@ def _launch_predict(cl: CellList, cfg: SystemConfig, offsets: torch.Tensor,
     keys = torch.empty((n_off, n, k), dtype=torch.float32, device=dev)
     idx = torch.empty((n_off, n, k), dtype=torch.int32, device=dev)
     emitted = torch.empty((n_off, n), dtype=torch.int32, device=dev)
-    lib = _library()
-    with _on_device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.tc_fused_predict(
-            cl.fields.data_ptr(), cl.cell_start.data_ptr(),
-            offsets.data_ptr(), n_off, n, nx, ny, nz, int(cl.is3d), k,
-            sub_steps, int(cfg.detect.angle_form == "product"),
-            ctypes.cast(param_block(cfg), ctypes.c_void_p),
-            ctypes.cast(_pred_param_block(cfg), ctypes.c_void_p),
-            keys.data_ptr(), idx.data_ptr(), emitted.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"predict_topk kernel launch failed: CUDA error {rc} "
-            f"({lib.tc_error_string(rc).decode()})")
+    _check_param_counts()
+    launch("predict_topk", "tc_fused_predict", dev,
+           cl.fields.data_ptr(), cl.cell_start.data_ptr(),
+           offsets.data_ptr(), n_off, n, nx, ny, nz, int(cl.is3d), k,
+           sub_steps, int(cfg.detect.angle_form == "product"),
+           ctypes.cast(param_block(cfg), ctypes.c_void_p),
+           ctypes.cast(_pred_param_block(cfg), ctypes.c_void_p),
+           keys.data_ptr(), idx.data_ptr(), emitted.data_ptr())
     return PredSlots(keys=keys, idx=idx, emitted=emitted)
 
 

@@ -38,21 +38,23 @@ from tpu_collide_torch.alerts.extract import AlertBatch, compute_priority
 from tpu_collide_torch.core.config import SystemConfig
 from tpu_collide_torch.core.ops import stable_topk, topk_low_index
 from tpu_collide_torch.core.utils import span, traced
-from tpu_collide_torch.detect.pipeline import (_dist_at_time,
-                                               _fast_first_crossing, _norm,
-                                               _pair_safe_distance,
-                                               _precise_sweep, _risk_score)
+from tpu_collide_torch.detect.pipeline import (PairSide,
+                                               _fast_first_crossing,
+                                               _precise_sweep, pair_payload,
+                                               pair_stage2)
 from tpu_collide_torch.detect.predict import (class_advance,
                                               classify_trajectories,
                                               merge_pair_risks,
                                               predict_offsets,
+                                              predict_pair_risks,
                                               sub_window_config)
+from tpu_collide_torch.kernels import _build
+from tpu_collide_torch.kernels._build import _check_inputs, launch
 from tpu_collide_torch.kernels.cell_list import (CellList, FI,
                                                  build_cell_list, decode_oid,
                                                  flat_cells, stencil_pairs)
-from tpu_collide_torch.kernels.fused_detect import (KEY_NONE, _check_inputs,
-                                                    _library, _on_device,
-                                                    fused_topk, predict_topk)
+from tpu_collide_torch.kernels.fused_detect import (KEY_NONE, fused_topk,
+                                                    predict_topk)
 
 
 def decode_risk(keys: torch.Tensor) -> torch.Tensor:
@@ -88,6 +90,13 @@ def refine_pairs(cl: CellList, own_idx: torch.Tensor, cand_idx: torch.Tensor,
                        alive[oi], alive[ci], cfg, mode)
 
 
+def _side(f, alive, oid) -> PairSide:
+    """One side of pairs from its gathered [P, NF] cell-list records."""
+    return PairSide(pos=f[:, 0:3], vel=f[:, 3:6], acc=f[:, 6:9],
+                    size=f[:, FI["size"]], heading=f[:, FI["heading"]],
+                    otype=f[:, FI["otype"]], alive=alive, id=oid)
+
+
 def refine_rows(fo, fc, oid_o, oid_c, alive_o, alive_c, cfg: SystemConfig,
                 mode: str) -> RefinedPairs:
     """Stages 1-4 on gathered [P, NF] records of each pair's two sides.
@@ -95,58 +104,18 @@ def refine_rows(fo, fc, oid_o, oid_c, alive_o, alive_c, cfg: SystemConfig,
     them as they are (an object and a halo mirror stay distinct), the
     reported ids have the halo marks undone."""
     det = cfg.detect
-    pos_o, pos_c = fo[:, 0:3], fc[:, 0:3]
-    vel_o, vel_c = fo[:, 3:6], fc[:, 3:6]
-    acc_o, acc_c = fo[:, 6:9], fc[:, 6:9]
-
-    # stage 1
-    rel_pos = pos_c - pos_o
-    ok1 = (alive_o & alive_c & (oid_o != oid_c)
-           & (_norm(rel_pos) <= det.search_radius))
-
-    # stage 2, with the configured sign convention
-    sep_vel = vel_c - vel_o
-    sep_acc = acc_c - acc_o
-    rel_speed = _norm(sep_vel)
-    safe = _pair_safe_distance(fo[:, FI["size"]], fc[:, FI["size"]], det)
-    conv = 1.0 if det.convention == "physical" else -1.0
-    dot = conv * torch.sum(rel_pos * sep_vel, dim=-1)
-    rs2 = torch.where(rel_speed > 0, rel_speed * rel_speed,
-                      torch.ones_like(rel_speed))
-    t_star = -dot / rs2
-    closest = _dist_at_time(rel_pos, sep_vel, sep_acc, t_star)
-    pass2 = (ok1 & (rel_speed >= det.min_relative_speed)
-             & (t_star >= 0.0) & (t_star <= det.time_window)
-             & (closest <= safe))
-
-    # stage 3
+    o, c = _side(fo, alive_o, oid_o), _side(fc, alive_c, oid_c)
+    s2 = pair_stage2(o, c, det)
     if mode == "fast":
-        hit, t_hit, d_hit = _fast_first_crossing(rel_pos, sep_vel, safe, det)
+        hit, t_hit, d_hit = _fast_first_crossing(s2.rel_pos, s2.sep_vel,
+                                                 s2.safe, det)
     else:
-        hit, t_hit, d_hit = _precise_sweep(rel_pos, sep_vel, sep_acc, safe,
-                                           det)
-    hit = hit & pass2
-
-    # collision position = midpoint of the two predicted positions
-    zero = torch.zeros_like(t_hit)
-    t_h = torch.where(hit, t_hit, zero)[:, None]
-    fut_o = pos_o + vel_o * t_h + 0.5 * acc_o * t_h * t_h
-    fut_c = pos_c + vel_c * t_h + 0.5 * acc_c * t_h * t_h
-    col_pos = 0.5 * (fut_o + fut_c)
-
-    # stage 4
-    risk = _risk_score(torch.where(hit, d_hit, zero),
-                       torch.where(hit, t_hit, zero), rel_speed,
-                       fo[:, FI["heading"]], fc[:, FI["heading"]],
-                       fo[:, FI["otype"]], fc[:, FI["otype"]], safe, det)
-    inf = torch.full_like(t_hit, float("inf"))
-    risk = torch.where(hit, risk, zero)
-    ttc = torch.where(hit, t_hit, inf)
+        hit, t_hit, d_hit = _precise_sweep(s2.rel_pos, s2.sep_vel,
+                                           s2.sep_acc, s2.safe, det)
+    hit = hit & s2.pass2
+    p = pair_payload(o, c, s2, hit, t_hit, d_hit, det)
     return RefinedPairs(
-        hit=hit, risk=risk, ttc=ttc,
-        distance=torch.where(hit, d_hit, inf),
-        rel_speed=torch.where(hit, rel_speed, zero),
-        col_pos=col_pos, priority=compute_priority(risk, ttc, cfg),
+        hit=hit, **p, priority=compute_priority(p["risk"], p["ttc"], cfg),
         own_oid=decode_oid(oid_o), cand_oid=decode_oid(oid_c))
 
 
@@ -301,9 +270,8 @@ def _scene_cut_launch(keys, own, covered, hkey, a) -> SceneCut:
         ("own", own, torch.bool, (m,)),
         ("covered", covered, torch.bool, (m,)),
         ("hkey", hkey, torch.float32, (p,))))
-    lib = _library()
     plan = (ctypes.c_longlong * 5)()
-    lib.tc_scene_cut_plan(m, k, p, a, plan)
+    _build.load_library().tc_scene_cut_plan(m, k, p, a, plan)
     if plan[0] < 0:
         raise ValueError(f"scene_cut: the kernel cannot cut {a} from {m} x "
                          f"{k} slots and {p} hot keys")
@@ -313,17 +281,11 @@ def _scene_cut_launch(keys, own, covered, hkey, a) -> SceneCut:
         top_i=torch.empty((a,), dtype=torch.int64, device=dev),
         count=torch.empty((), dtype=torch.int32, device=dev),
         max_risk=torch.empty((), dtype=torch.float32, device=dev))
-    with _on_device(dev):
-        rc = lib.tc_scene_cut(
-            keys.data_ptr(), own.data_ptr(), covered.data_ptr(), m, k,
-            hkey.data_ptr(), p, a, ws.data_ptr(), plan[0],
-            out.top_key.data_ptr(), out.top_i.data_ptr(),
-            out.count.data_ptr(), out.max_risk.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"scene_cut kernel launch failed: CUDA error {rc} "
-            f"({lib.tc_error_string(rc).decode()})")
+    launch("scene_cut", "tc_scene_cut", dev,
+           keys.data_ptr(), own.data_ptr(), covered.data_ptr(), m, k,
+           hkey.data_ptr(), p, a, ws.data_ptr(), plan[0],
+           out.top_key.data_ptr(), out.top_i.data_ptr(),
+           out.count.data_ptr(), out.max_risk.data_ptr())
     return out
 
 
@@ -475,35 +437,18 @@ PREDICT_KEY_MARGIN = 0.51 / KEY_Q
 def _predict_pairs(cl: CellList, own, cand, t, cfg: SystemConfig,
                    sub_window: float):
     """(other oid, hit, risk, ttc, dist) [P] of explicit (own row,
-    candidate row) pairs at offsets t ([P] f32), with the expressions of
-    detect/predict.predict_collisions: the own object at its class-predicted
-    position, the candidate advanced under constant acceleration, the
-    stage-1 radius on the candidate's CURRENT position, the sampled sweep
-    over the sub-window and the stage-4 risk."""
+    candidate row) pairs at offsets t ([P] f32), by predict_pair_risks
+    as detect/predict.predict_collisions runs it, with the own object at
+    its class-predicted position."""
     det = cfg.detect
     fo, fc = cl.fields[own], cl.fields[cand]
-    p_o, v_o, a_o = fo[:, 0:3], fo[:, 3:6], fo[:, 6:9]
-    p_c, v_c, a_c = fc[:, 0:3], fc[:, 3:6], fc[:, 6:9]
-    tb = t[:, None]
-    pred = class_advance(p_o, v_o, a_o, fo[:, FI["cls"]], tb)
-    o_pos = p_c + v_c * tb + 0.5 * a_c * tb * tb
     alive = cl.alive
-    ok = (alive[own] & alive[cand] & (cl.oid[own] != cl.oid[cand])
-          & (_norm(p_c - pred) <= det.search_radius))
-    safe = _pair_safe_distance(fo[:, FI["size"]], fc[:, FI["size"]], det)
-    sep_vel = v_c - v_o
-    hit, t_hit, d_hit = _precise_sweep(o_pos - pred, sep_vel, a_c - a_o,
-                                       safe, sub_window_config(det,
-                                                               sub_window))
-    hit = hit & ok
-    zero = torch.zeros_like(t_hit)
-    inf = torch.full_like(t_hit, float("inf"))
-    risk = _risk_score(torch.where(hit, d_hit, zero),
-                       torch.where(hit, t_hit, zero), _norm(sep_vel),
-                       fo[:, FI["heading"]], fc[:, FI["heading"]],
-                       fo[:, FI["otype"]], fc[:, FI["otype"]], safe, det)
-    return (cl.oid_decoded[cand], hit, torch.where(hit, risk, zero),
-            torch.where(hit, t_hit + t, inf), torch.where(hit, d_hit, inf))
+    o = _side(fo, alive[own], cl.oid[own])
+    pred = class_advance(o.pos, o.vel, o.acc, fo[:, FI["cls"]], t[:, None])
+    hit, risk, ttc, dist = predict_pair_risks(
+        o, _side(fc, alive[cand], cl.oid[cand]), pred, t, det,
+        sub_window_config(det, sub_window))
+    return cl.oid_decoded[cand], hit, risk, ttc, dist
 
 
 _POOL_FILL = (0, False, 0.0, float("inf"), float("inf"))
