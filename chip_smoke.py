@@ -198,6 +198,17 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    three vectors and safe distance read once, its result
                    written once, each swept to its first hit or the last
                    sample) and the launches
+  cell_records     the cell list's record kernel (cell_records_phase)
+                   bit-equal to its plain version (the records as raw bits,
+                   the oids) at build_cell_list's own order: a 10M-3D fleet
+                   (cfg_10m) and main_path's configurations as certified
+                   there, each also with a predict class in the records;
+                   at the timed shapes the kernels of one call captured in
+                   a CUDA graph (torch.sin, torch.cos, pack and gather),
+                   CUDA-event ms, graph-replayed device ms, the plain
+                   version's ms, the bound (each row's order, state and
+                   sin / cos read once, its record and oid written once)
+                   and the bound of the bytes the two passes move
   xla_path         make_step(cfg, backend="xla") at bench.py's XLA rows
                    (1k precise and 1k fast, city skew) and
                    make_step(cfg100k, chunk_size=8192) on a uniform 100k
@@ -222,7 +233,8 @@ detection kernels' on main_path, scene, service, scenario, sharded,
 sharded_serving, bench and scale, the predict kernel's on predict_path,
 scene and sharded_serving, the co-sort's on cosort_vs_plain, the scene
 cut's on main_path's fast steps and in its phase, the sweep kernel's
-on main_path's precise steps and in its phase; the sum, and
+on main_path's precise steps and in its phase, the record kernel's on
+main_path's steps and in its phase; the sum, and
 each path's in launches_by_path), their times and their bounds;
 the last line
 is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -824,15 +836,17 @@ def timed_steps(advance, torch) -> tuple:
     with CUDA events: (worst overflow, worst alert_overflow, last output,
     median ms per step, the detection kernel's launches). Fails unless every
     step launched the kernel once. Leaves the scene cut's calls in these
-    steps in refine.scene_cut.launches and the sweep kernel's in
-    pipeline.precise_sweep_kernel.launches."""
+    steps in refine.scene_cut.launches, the sweep kernel's in
+    pipeline.precise_sweep_kernel.launches and the record kernel's in
+    cell_list.cell_records.launches."""
     from tpu_collide_torch.detect.pipeline import precise_sweep_kernel
+    from tpu_collide_torch.kernels.cell_list import cell_records
     from tpu_collide_torch.kernels.fused_detect import fused_topk
     from tpu_collide_torch.kernels.refine import scene_cut
     worst_of = worst_ao = None
     events = []
     fused_topk.launches = scene_cut.launches = 0
-    precise_sweep_kernel.launches = 0
+    precise_sweep_kernel.launches = cell_records.launches = 0
     for i in range(2 + REPEATS):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -4048,6 +4062,85 @@ def precise_sweep_phase(smi, torch, dev, main_precise) -> dict:
     return dict(launches=precise_sweep_kernel.launches - start, lines=lines)
 
 
+def cell_records_check(name, state, order, cls, smi, torch,
+                       timed=True) -> dict:
+    """The record kernels against cell_records_plain at one order: the
+    records as raw bits and the oids equal. With `timed`: the kernels of one
+    call captured in a CUDA graph (torch.sin, torch.cos, pack and gather),
+    its CUDA-event ms, its device ms (graph_ms), the plain version's ms and
+    the bound: each row's order, state and sin / cos read once (68 bytes,
+    72 with a class) and its record and oid written once (68 bytes); and
+    the bound of the bytes the two passes move (pass_bound_ms: the pack
+    reads 60, or 64 with a class, and writes 64 a row, the gather reads
+    8 + 64 and writes 68), which sets the kernels' pace."""
+    from tpu_collide_torch.kernels.cell_list import (cell_records,
+                                                     cell_records_plain)
+    before = cell_records.launches
+    got = cell_records(state, order, cls)
+    want = cell_records_plain(state, order, cls)
+    torch.cuda.synchronize()
+    if cell_records.launches != before + 1:
+        raise AssertionError(f"cell_records {name}: the kernel did not run")
+    bits = lambda x: x.view(torch.int32)
+    rows = ((bits(got[0]) != bits(want[0])).any(dim=1)
+            | (got[1] != want[1])).nonzero()
+    if rows.numel():
+        raise AssertionError(
+            f"cell_records {name}: {rows.shape[0]} rows differ, the first "
+            f"{rows[:3].flatten().tolist()}")
+    n = order.numel()
+    line = dict(phase="cell_records", case=name, rows=n,
+                cls=cls is not None, bit_equal=True)
+    if timed:
+        run = lambda: cell_records(state, order, cls)
+        seen = graph_launches(run, torch)
+        if seen != (4, 0):
+            raise AssertionError(f"cell_records {name}: (kernels, memsets) "
+                                 f"{seen} a call")
+        extra = 4 * (cls is not None)
+        line.update(
+            launches=seen[0], ms=median_ms(run, torch),
+            device_ms=graph_ms(run, torch),
+            plain_ms=median_ms(lambda: cell_records_plain(state, order, cls),
+                               torch, repeats=3),
+            **bound(n * (68 + extra + 68), 0),
+            pass_bound_ms=bound(n * (60 + extra + 64 + 8 + 64 + 68),
+                                0)["bound_ms"],
+            card=smi)
+    emit(line)
+    return line
+
+
+def cell_records_phase(smi, torch, dev, main_runs) -> dict:
+    """The cell list's record kernel (csrc/cell_records.cu) bit-equal to
+    its plain version on the card, at build_cell_list's own order: a 10M-3D
+    fleet (tools/torch_scale_bench.py's cfg_10m) and main_path's
+    configurations (`main_runs`: name -> (certified cfg, fleet
+    distribution)) on fleets of their own, each also with a predict class
+    (untimed). Returns {"launches": kernel calls in the phase, "lines": its
+    timed lines by case}."""
+    from tpu_collide_torch.kernels.cell_list import (build_cell_list,
+                                                     cell_records)
+    from tpu_collide_torch.sim import generate_fleet
+    start = cell_records.launches
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    lines = {}
+    cfg10m = load_tool("torch_scale_bench").cfg_10m("fast")
+    runs = {"10m_3d": (cfg10m, "uniform"), **main_runs}
+    for seed, (name, (cfg, dist)) in enumerate(runs.items()):
+        state = generate_fleet(gen(900 + seed), cfg, dist)
+        order = build_cell_list(state, cfg).order
+        lines[name] = cell_records_check(name, state, order, None, smi,
+                                         torch)
+        cls = torch.randint(0, 5, (state.n,), generator=gen(950 + seed),
+                            device=dev, dtype=torch.int32)
+        cell_records_check(name + "_cls", state, order, cls, smi, torch,
+                           timed=False)
+        del state, order, cls
+        torch.cuda.empty_cache()
+    return dict(launches=cell_records.launches - start, lines=lines)
+
+
 def by_oid_state(host, torch):
     """The alive objects of a collected state in oid order."""
     from tpu_collide_torch.core.state import FIELDS
@@ -4193,12 +4286,14 @@ def main() -> None:
 
     # ---- main_path ----
     from tpu_collide_torch.detect.pipeline import precise_sweep_kernel
+    from tpu_collide_torch.kernels.cell_list import cell_records
     from tpu_collide_torch.kernels.refine import scene_cut
     runs = main_path_runs()
     launches = {"hits": 0, "survivors": 0}
     kernel_ms, bounds = {}, {}
     main_cuts, main_fast = 0, {}
     main_sweeps, main_precise = 0, {}
+    main_records = 0
     for seed, (name, cfg, dist) in enumerate(runs):
         mode = mode_of[cfg.detect.mode]
         drive = lambda c: fused_steps(c, dist, 100 + seed, torch, dev)
@@ -4215,6 +4310,11 @@ def main() -> None:
             raise AssertionError(f"{name}: {n_sweep} sweep launches in "
                                  f"{n_launch} fused steps")
         main_sweeps += n_sweep
+        n_records = cell_records.launches
+        if n_records != n_launch:
+            raise AssertionError(f"{name}: {n_records} record kernel "
+                                 f"launches in {n_launch} fused steps")
+        main_records += n_records
         if mode == "hits":
             main_fast[name] = (cfg, dist)
         else:
@@ -4231,7 +4331,8 @@ def main() -> None:
             phase="main_path", config=name, distribution=dist,
             ms_per_step=ms_per_step, steps_timed=REPEATS,
             kernel_launches=n_launch, scene_cut_launches=n_cut,
-            precise_sweep_launches=n_sweep, attempts=attempts,
+            precise_sweep_launches=n_sweep, cell_records_launches=n_records,
+            attempts=attempts,
             max_alerts_per_object=cfg.alerts.max_alerts_per_object,
             survivor_k=cfg.detect.survivor_k, survivor_cap=cfg.survivor_cap,
             num_risks=int(out.num_risks), alerts=int(out.alerts.count),
@@ -4463,6 +4564,10 @@ def main() -> None:
 
     # ---- precise_sweep: the precise tail's sweep kernel ----
     sweep = precise_sweep_phase(smi, torch, dev, main_precise)
+
+    # ---- cell_records: the cell list's record kernel ----
+    records = cell_records_phase(smi, torch, dev,
+                                 {**main_fast, **main_precise})
 
     # ---- xla_path: the reference-shaped step ----
     cfg1k_p = tt.SystemConfig(num_objects=1000,
@@ -4731,6 +4836,19 @@ def main() -> None:
                         plain_ms=sweep10m["plain_ms"],
                         bound_ms=sweep10m["bound_ms"],
                         bound_by=sweep10m["bound_by"], library_ms=None))
+    records10m = records["lines"]["10m_3d"]
+    kernels.append(dict(name="cell_records", route="cuda",
+                        source="tpu_collide_torch/csrc/cell_records.cu",
+                        replaces=None,
+                        launches=main_records + records["launches"],
+                        launches_by_path=dict(
+                            main_path=main_records,
+                            cell_records=records["launches"]),
+                        max_abs_err=0.0, ms=records10m["ms"],
+                        device_ms=records10m["device_ms"],
+                        plain_ms=records10m["plain_ms"],
+                        bound_ms=records10m["bound_ms"],
+                        bound_by=records10m["bound_by"], library_ms=None))
     for kr in kernels:
         for path, n in kr["launches_by_path"].items():
             if n == 0:

@@ -1,13 +1,18 @@
 """The port's cell list against the JAX package's build_cell_list: per-cell
 membership, cell_start[b * nx] == cr_start[b], n_alive, dead objects, and
-the stencil runs the kernel walks."""
+the stencil runs the kernel walks. The sorted records against the gathers
+and torch.cat that built them before the record kernel (csrc/
+cell_records.cu, held to its plain version on the card by
+tests/test_torch_cell_records_card.py and chip_smoke.py)."""
 import numpy as np
 import pytest
 import torch
 
 from tpu_collide.kernels.cell_list import build_cell_list as jax_build
-from tpu_collide_torch.kernels.cell_list import (FIELD_NAMES,
+from tpu_collide_torch.kernels.cell_list import (FI, FIELD_NAMES, NF,
                                                  build_cell_list,
+                                                 cell_records,
+                                                 cell_records_plain,
                                                  stencil_pairs)
 from tests.torch_parity import both_states, jax_cfg, np_fleet, to_torch_cfg
 
@@ -100,3 +105,81 @@ def test_stencil_pairs_cover_neighbour_cells(is3d):
         near = np.all(np.abs(xyz - xyz[r]) <= 1, axis=1) & alive
         assert np.all(np.diff(got) > 0)
         np.testing.assert_array_equal(got, np.flatnonzero(near))
+
+
+def _records_by_cat(state, order, cls):
+    """The records and oids as build_cell_list made them with one ten-piece
+    torch.cat of gathered and computed columns."""
+    heading = state.heading[order]
+    cls_col = (torch.zeros((state.n, 1), dtype=torch.float32)
+               if cls is None else cls[order, None].to(torch.float32))
+    fields = torch.cat([
+        state.pos[order], state.vel[order], state.acc[order],
+        state.size[order, None], heading[:, None],
+        state.otype[order, None].to(torch.float32),
+        torch.sin(heading)[:, None], torch.cos(heading)[:, None],
+        cls_col, torch.zeros((state.n, 1), dtype=torch.float32),
+    ], dim=1).contiguous()
+    return fields, state.oid[order].contiguous()
+
+
+def _record_fleet(fleet, is3d):
+    """(numpy fleet, marked rows) of a records case: dead rows inside the
+    fleet, halo mirrors' marked oids, one object, or none."""
+    n = {"dead_inside": 300, "halo": 300, "one": 1, "empty": 0}[fleet]
+    d = np_fleet(4, 300, 1000.0 if is3d else 2000.0, is3d=is3d, dead=7)
+    d = {k: v[:n] for k, v in d.items()}
+    marked = np.zeros(n, bool)
+    if fleet == "dead_inside":
+        d["alive"][[3, 50, 120]] = False
+    elif fleet == "halo":
+        marked[::3] = True
+        d["oid"] = np.where(marked, -(d["oid"] + 2), d["oid"])
+    return d, marked
+
+
+@pytest.mark.parametrize("fleet", ["dead_inside", "halo", "one", "empty"])
+@pytest.mark.parametrize("with_cls", [False, True])
+@pytest.mark.parametrize("is3d", [False, True])
+def test_records_equal_the_cat(is3d, with_cls, fleet):
+    """On the CPU build_cell_list's records and oids are the cat's, bit for
+    bit, and cell_records takes the plain version: nothing launches."""
+    d, marked = _record_fleet(fleet, is3d)
+    n = len(d["oid"])
+    cfg = to_torch_cfg(jax_cfg(max(n, 1), is3d=is3d))
+    _, st = both_states(d)
+    cls = (torch.from_numpy(np.random.default_rng(5).integers(
+        0, 5, n).astype(np.int32)) if with_cls else None)
+    before = cell_records.launches
+    cl = build_cell_list(st, cfg, cls=cls)
+    want_fields, want_oid = _records_by_cat(st, cl.order, cls)
+    assert cl.fields.shape == (n, NF) and cl.fields.is_contiguous()
+    assert cl.oid.dtype == torch.int32 and cl.oid.shape == (n,)
+    bits = lambda x: x.view(torch.int32)
+    assert torch.equal(bits(cl.fields), bits(want_fields))
+    assert torch.equal(cl.oid, want_oid)
+    for got in (cell_records(st, cl.order, cls),
+                cell_records_plain(st, cl.order, cls)):
+        assert torch.equal(bits(got[0]), bits(want_fields))
+        assert torch.equal(got[1], want_oid)
+    assert cell_records.launches == before      # CPU: the plain version
+    order = cl.order.numpy()
+    # halo marks ride along as the state holds them, and own rows skip them
+    np.testing.assert_array_equal(cl.oid.numpy(), d["oid"][order])
+    np.testing.assert_array_equal(cl.own.numpy(),
+                                  d["alive"][order] & ~marked[order])
+    want_cls = (np.zeros(n, np.float32) if cls is None
+                else cls.numpy()[order].astype(np.float32))
+    np.testing.assert_array_equal(cl.fields[:, FI["cls"]].numpy(), want_cls)
+    assert not cl.fields[:, FI["pad1"]].numpy().any()
+
+
+def test_records_refuse_other_devices():
+    d, _ = _record_fleet("one", False)
+    _, st = both_states(d)
+    meta = lambda t: t.to("meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        cell_records(st.replace(**{f: meta(getattr(st, f)) for f in
+                                   ("pos", "vel", "acc", "heading", "size",
+                                    "otype", "alive", "oid")}),
+                     meta(torch.zeros(1, dtype=torch.int64)))

@@ -147,6 +147,10 @@ def open_library(csrc: Path) -> ctypes.CDLL:
                                          ci, ci, ctypes.c_float, vp, vp, vp,
                                          vp]
         lib.tc_precise_sweep.restype = ci
+    if hasattr(lib, "tc_cell_records"):       # not in older copies of csrc
+        lib.tc_cell_records.argtypes = [vp] * 11 + [ctypes.c_longlong, vp,
+                                                    vp, vp, vp]
+        lib.tc_cell_records.restype = ci
     lib.tc_error_string.argtypes = [ci]
     lib.tc_error_string.restype = ctypes.c_char_p
     return lib

@@ -30,10 +30,12 @@ from tpu_collide_torch.core.device import host_tensor
 from tpu_collide_torch.core.state import ObjectState
 from tpu_collide_torch.core.utils import span, traced
 from tpu_collide_torch.index.grid import cell_coords, flatten_cells
+from tpu_collide_torch.kernels._build import _check_inputs, launch
 
 # Sorted per-object record: 16 f32 = 64 bytes, four 16-byte loads in the
-# kernel. sin_h / cos_h are computed once per object here, so the kernel
-# and its plain version read the same values for the 'product' angle form.
+# detection kernel (cell_records writes it). sin_h / cos_h are computed once
+# per object here, so the kernel and its plain version read the same values
+# for the 'product' angle form.
 # cls is the trajectory class of the predict mode (0 in the detection
 # modes).
 FIELD_NAMES = ("x", "y", "z", "vx", "vy", "vz", "ax", "ay", "az",
@@ -122,6 +124,44 @@ def build_cell_list(state: ObjectState, cfg: SystemConfig,
     flat = (c3[:, 2] * ny + c3[:, 1]) * nx + c3[:, 0]
     flat = torch.where(state.alive, flat, torch.full_like(flat, num_cells))
     key, order = torch.sort(flat, stable=True)
+    fields, oid = cell_records(state, order, cls)
+    cell_start = torch.searchsorted(
+        key, torch.arange(num_cells + 1, dtype=torch.int32, device=dev),
+        out_int32=True)
+    return CellList(
+        fields=fields, oid=oid,
+        cell=key.contiguous(), cell_start=cell_start, order=order,
+        n_alive=cell_start[num_cells],
+        overflow=torch.zeros((), dtype=torch.int32, device=dev),
+        grid_dims=(nx, ny, nz), is3d=cfg.world.is_3d)
+
+
+def cell_records(state: ObjectState, order: torch.Tensor,
+                 cls: torch.Tensor | None = None):
+    """(fields [N, NF] f32, oid [N] int32): the record and the oid of state
+    row order[i] in row i, for the N = state.n rows of `order` ([N] int64,
+    a permutation). `cls` ([N], state order) fills the cls field, 0 when
+    not given; the oid is copied as the state holds it.
+
+    CUDA tensors launch the kernel (csrc/cell_records.cu) or raise, and
+    count the call in `cell_records.launches`; CPU tensors take
+    cell_records_plain. Both give the same bits on the card."""
+    dev = order.device
+    if dev.type == "cuda":
+        return _cell_records_launch(state, order, cls)
+    if dev.type == "cpu":
+        return cell_records_plain(state, order, cls)
+    raise ValueError(f"cell_records has no kernel for device {dev}")
+
+
+cell_records.launches = 0
+
+
+def cell_records_plain(state: ObjectState, order: torch.Tensor,
+                       cls: torch.Tensor | None = None):
+    """cell_records as gathers and one torch.cat, in plain PyTorch on any
+    device."""
+    dev = state.device
     heading = state.heading[order]
     cls_col = (torch.zeros((state.n, 1), dtype=torch.float32, device=dev)
                if cls is None else cls[order, None].to(torch.float32))
@@ -132,15 +172,42 @@ def build_cell_list(state: ObjectState, cfg: SystemConfig,
         torch.sin(heading)[:, None], torch.cos(heading)[:, None],
         cls_col, torch.zeros((state.n, 1), dtype=torch.float32, device=dev),
     ], dim=1).contiguous()
-    cell_start = torch.searchsorted(
-        key, torch.arange(num_cells + 1, dtype=torch.int32, device=dev),
-        out_int32=True)
-    return CellList(
-        fields=fields, oid=state.oid[order].contiguous(),
-        cell=key.contiguous(), cell_start=cell_start, order=order,
-        n_alive=cell_start[num_cells],
-        overflow=torch.zeros((), dtype=torch.int32, device=dev),
-        grid_dims=(nx, ny, nz), is3d=cfg.world.is_3d)
+    return fields, state.oid[order].contiguous()
+
+
+def _cell_records_launch(state: ObjectState, order: torch.Tensor,
+                         cls: torch.Tensor | None):
+    n = state.n
+    dev = order.device
+    f32, i32 = torch.float32, torch.int32
+    # the kernel takes cls converted in state order: a conversion commutes
+    # with the plain version's gather
+    cls_f = None if cls is None else cls.to(f32)
+    _check_inputs("cell_records", dev, (
+        ("order", order, torch.int64, (n,)),
+        ("pos", state.pos, f32, (n, 3)), ("vel", state.vel, f32, (n, 3)),
+        ("acc", state.acc, f32, (n, 3)), ("size", state.size, f32, (n,)),
+        ("heading", state.heading, f32, (n,)),
+        ("otype", state.otype, i32, (n,)), ("oid", state.oid, i32, (n,)))
+        + (() if cls_f is None else (("cls", cls_f, f32, (n,)),)))
+    fields = torch.empty((n, NF), dtype=f32, device=dev)
+    oid = torch.empty((n,), dtype=i32, device=dev)
+    if n == 0:
+        return fields, oid
+    # sin and cos in state order: elementwise, so they commute with the
+    # plain version's gather and give its bits
+    sin_h, cos_h = torch.sin(state.heading), torch.cos(state.heading)
+    work = torch.empty((n, NF), dtype=f32, device=dev)  # records, state order
+    launch("cell_records", "tc_cell_records", dev,
+           order.data_ptr(), state.pos.data_ptr(), state.vel.data_ptr(),
+           state.acc.data_ptr(), state.size.data_ptr(),
+           state.heading.data_ptr(), state.otype.data_ptr(),
+           sin_h.data_ptr(), cos_h.data_ptr(),
+           None if cls_f is None else cls_f.data_ptr(),
+           state.oid.data_ptr(), n, work.data_ptr(), fields.data_ptr(),
+           oid.data_ptr())
+    cell_records.launches += 1
+    return fields, oid
 
 
 def stencil_runs(cl: CellList, rows: torch.Tensor,
