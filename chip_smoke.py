@@ -37,7 +37,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    survivors and evicts slots
   predict_path     trajectory prediction at the size of bench.py's predict
                    row: 100k city-skew objects, 4 fused steps each followed
-                   by update_history, then _predict_device_fused (k_slots
+                   by update_history, then engine.make_predict (k_slots
                    16, merge_k 32, horizon 10 s at 0.5 s); the kernel
                    against its plain version on the first and last offset
   predict_oracle   fused_predict (the kernel) against predict_collisions
@@ -4159,10 +4159,9 @@ def main() -> None:
     from tpu_collide_torch.core.config import DetectionConfig, WorldConfig
     from tpu_collide_torch.core.device import card
     from tpu_collide_torch.core.state import conform_fleet, state_from_numpy
-    from tpu_collide_torch.engine import detect_and_alerts_fused
+    from tpu_collide_torch.engine import detect_and_alerts_fused, make_predict
     from tpu_collide_torch.kernels import _build
     from tpu_collide_torch.kernels.cell_list import build_cell_list
-    from tpu_collide_torch.api.scene import _predict_device_fused
     from tpu_collide_torch.detect.predict import (classify_trajectories,
                                                   empty_history,
                                                   predict_collisions,
@@ -4444,8 +4443,8 @@ def main() -> None:
     classes = torch.bincount(classify_trajectories(hist).long(),
                              minlength=3).tolist()
     r_cap = min(cfg.alerts.max_scene_alerts, cfg.num_objects * 32)
-    run = lambda: _predict_device_fused(state, hist, cfg, HORIZON,
-                                        PRED_STEP, r_cap, k_slots=K_SLOTS)
+    run = lambda: make_predict(cfg, HORIZON, PRED_STEP, k_slots=K_SLOTS,
+                               r_cap=r_cap, device=dev)(state, hist)
     predict_topk.launches = 0
     out = run()
     ms_per_predict = median_ms(run, torch)

@@ -27,7 +27,8 @@ from tpu_collide.core.config import (AlertConfig, DetectionConfig,
                                      GridConfig, SystemConfig, WorldConfig)
 from tpu_collide.detect import predict as jpred
 from tpu_collide.index.grid import build_grid as jax_build_grid
-from tpu_collide_torch.api.scene import _predict_device, _predict_device_fused
+from tpu_collide_torch.api.scene import _predict_device
+from tpu_collide_torch.engine import make_predict
 from tpu_collide_torch.core.ops import stable_topk
 from tpu_collide_torch.detect import predict as tpred
 from tpu_collide_torch.engine import grid_overflow
@@ -515,7 +516,8 @@ def test_predict_device_paths_agree_with_jax():
     want = jax.jit(jax_predict_device, static_argnums=(2, 3, 4, 5))(
         jst, jh, cfg, 5.0, 0.5, 4096)
     grid = _predict_device(st, th, tcfg, 5.0, 0.5, 4096)
-    fused = _predict_device_fused(st, th, tcfg, 5.0, 0.5, 4096, k_slots=16)
+    fused = make_predict(tcfg, 5.0, 0.5, k_slots=16, r_cap=4096,
+                         device="cpu")(st, th)
     assert [int(x) for x in grid[5:]] == [int(x) for x in want[5:]]
     assert int(fused[5]) == int(want[5]) > 0
     assert [int(x) for x in fused[6:]][:2] == [0, 0]

@@ -508,19 +508,23 @@ def test_predict_k_slots_heal():
         sc.step()
         sc.record_trajectories()
     seen = []
-    real = scene_mod._predict_device_fused
+    real = scene_mod.make_predict
 
     def spy(*a, **kw):
-        res = real(*a, **kw)
-        seen.append((kw["k_slots"], int(res[7])))
-        return res
+        fn = real(*a, **kw)
 
-    scene_mod._predict_device_fused = spy
+        def call(state, hist):
+            res = fn(state, hist)
+            seen.append((kw["k_slots"], int(res.slot_oflow)))
+            return res
+        return call
+
+    scene_mod.make_predict = spy
     try:
         risks = sc.predict()
         sc.predict()
     finally:
-        scene_mod._predict_device_fused = real
+        scene_mod.make_predict = real
     assert seen[0][0] == 8 and seen[0][1] > 0      # slot_oflow at k 8
     assert seen[1][0] == 16 and sc._predict_slots >= 16
     assert sc.window_regrows >= 1 and len(risks) > 0

@@ -24,7 +24,7 @@ d_hit = d in the sweep), and besides that without the ring (the sweep
 called at once, `if (__any_sync(FULL, pass)) sweep(pass, j)`, on the lanes
 that passed).
 
-profile: torch.profiler over 3 calls of _predict_device_fused at
+profile: torch.profiler over 3 calls of engine.make_predict's call at
 predict_path's configuration (100k city skew, horizon 10 s at 0.5 s,
 k_slots 16): wall and device-busy time per call, idle share, launches,
 host waits, and the largest device items.
@@ -145,13 +145,13 @@ def compare(specs, torch, dev, smi) -> bool:
 def profile(torch, dev, smi) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
-    from tpu_collide_torch.api.scene import _predict_device_fused
+    from tpu_collide_torch.engine import make_predict
     cfg = cs.bench_configs()[0]
     state, hist = cs.predict_path_inputs(cfg, torch, dev)
     calls = 3
-    run = lambda: _predict_device_fused(state, hist, cfg, cs.HORIZON,
-                                        cs.PRED_STEP, 1024,
-                                        k_slots=cs.K_SLOTS)
+    run = lambda: make_predict(cfg, cs.HORIZON, cs.PRED_STEP,
+                               k_slots=cs.K_SLOTS, r_cap=1024,
+                               device=dev)(state, hist)
     for _ in range(2):
         run()
     torch.cuda.synchronize()

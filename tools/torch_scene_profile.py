@@ -9,7 +9,7 @@ healed to 16 by a first call), after warm-up calls, one JSON line each:
 
   * per call on the host clock, median and p95 of 20 calls: the whole call;
     the part the Scene times itself (stats_timing: the step and its one
-    device-to-host copy; for predict, the device half _predict_device_fused
+    device-to-host copy; for predict, the device half engine.make_predict
     and its copy, called alone on the same inputs); the rest (flush,
     self-heal checks, the AlertManager's Python); and the engine's step
     alone (make_step, synchronised) on a copy of the fleet;
@@ -150,7 +150,7 @@ def serving(torch, dev, smi) -> None:
 
 def predict(torch, dev, smi) -> None:
     from tpu_collide_torch.api import Scene
-    from tpu_collide_torch.api.scene import _predict_device_fused
+    from tpu_collide_torch.engine import make_predict
     from tpu_collide_torch.core.device import to_host
     from tpu_collide_torch.sim import generate_fleet
     cfg = {name: c for name, c, _ in cs.main_path_runs()}["100k_2d_fast"]
@@ -163,9 +163,9 @@ def predict(torch, dev, smi) -> None:
     for _ in range(2):          # the first call heals k_slots to 16
         sc.predict()
     r_cap = min(cfg.alerts.max_scene_alerts, sc.state.n * 32)
-    device_half = lambda: to_host(_predict_device_fused(
-        sc.state, sc._traj, sc.cfg, 10.0, 0.5, r_cap,
-        k_slots=sc._predict_slots))
+    device_half = lambda: to_host(make_predict(
+        sc.cfg, 10.0, 0.5, k_slots=sc._predict_slots, r_cap=r_cap,
+        device=sc.device)(sc.state, sc._traj))
     calls = timed(sc.predict, CALLS)
     inside = timed(device_half, CALLS)
     emit(dict(config="100k_2d_cityskew_predict", backend="fused",

@@ -25,16 +25,11 @@ the per-object slot ceiling of the self-heals is kernels/fused_detect.K_MAX
 torch.Generator seeded 0 (a checkpoint does not carry it, as the JAX one
 does not carry its key).
 
-The device half of predict is `_predict_device_fused` (the predict kernel)
-or `_predict_device` (the grid). Both run a prediction and compact the
-[N, merge_k] merged risks to the r_cap highest qualifying entries on the
-device, so that nothing bigger than r_cap crosses to the host. They return
-
-    (risk [r], vehicle oid [r], other oid [r], ttc [r], dist [r],
-     qualifying count [], overflow [], slot_oflow [], slot_trunc [])
-
-with r = min(r_cap, N * merge_k); entries past the qualifying count carry
-risk -1.
+The device half of predict is `engine.make_predict`'s call (the predict
+kernel; the benchmark drives the same entry) or `_predict_device` (the
+grid). Both run a prediction and compact the [N, merge_k] merged risks to
+the r_cap highest qualifying entries on the device, so that nothing bigger
+than r_cap crosses to the host, as an `engine.Predicted`.
 """
 from __future__ import annotations
 
@@ -51,7 +46,6 @@ from tpu_collide_torch.ckpt.checkpoint import CheckpointManager
 from tpu_collide_torch.core.config import VEHICLE_TYPES, SystemConfig
 from tpu_collide_torch.core.device import (check_on, resolve_device,
                                            to_host, to_host_async)
-from tpu_collide_torch.core.ops import stable_topk
 from tpu_collide_torch.core.state import (ObjectState, conform_fleet,
                                           empty_state)
 from tpu_collide_torch.core.types import (Alert, CollisionRisk, LocationData,
@@ -60,12 +54,12 @@ from tpu_collide_torch.core.utils import Timer, get_logger
 from tpu_collide_torch.detect.predict import (empty_history,
                                               predict_collisions,
                                               update_history)
-from tpu_collide_torch.engine import (grid_overflow, make_burst_step,
-                                      make_detect, make_step)
+from tpu_collide_torch.engine import (Predicted, compact_predicted,
+                                      grid_overflow, make_burst_step,
+                                      make_detect, make_predict, make_step)
 from tpu_collide_torch.index.grid import (build_grid, cell_coords,
                                           query_radius as _query_radius)
 from tpu_collide_torch.kernels.fused_detect import K_MAX
-from tpu_collide_torch.kernels.refine import fused_predict
 from tpu_collide_torch.kernels.tune import (suggest_cell_capacity,
                                             suggest_survivor_cap)
 
@@ -123,33 +117,6 @@ def _apply_updates(state: ObjectState, slot: np.ndarray, pos, vel, acc,
         alive=put(state.alive, np.ones(len(slot), bool)))
 
 
-def _compact(oid, other, valid, risk, ttc, dist, cfg: SystemConfig,
-             r_cap: int):
-    """The r_cap highest qualifying (risk >= risk_low) merged entries, ties
-    by the lower flat index as the JAX package's top_k breaks them; `oid`
-    names each row's object."""
-    kk = risk.shape[1]
-    keep = valid & (risk >= cfg.alerts.risk_low)
-    keyv = torch.where(keep, risk, torch.full_like(risk, -1.0)).reshape(-1)
-    top_r, top_i = stable_topk(keyv, min(r_cap, keyv.numel()))
-    sel = lambda x: x.reshape(-1)[top_i]
-    return (top_r, oid[top_i // kk], sel(other), sel(ttc), sel(dist),
-            keep.sum(dtype=torch.int32))
-
-
-def _predict_device_fused(state, traj, cfg: SystemConfig, horizon: float,
-                          step: float, r_cap: int, window_rows=None,
-                          k_slots: int = 8):
-    """Prediction through the predict kernel (kernels/refine.fused_predict),
-    compacted to r_cap. `other` entries are already oids."""
-    (other, valid, risk, ttc, dist, overflow, slot_oflow,
-     slot_trunc) = fused_predict(state, traj, cfg, horizon=horizon,
-                                 step=step, window_rows=window_rows,
-                                 k_slots=k_slots)
-    return _compact(state.oid, other, valid, risk, ttc, dist, cfg, r_cap) + (
-        overflow.to(torch.int32), slot_oflow, slot_trunc)
-
-
 def _predict_device(state, traj, cfg: SystemConfig, horizon: float,
                     step: float, r_cap: int):
     """Prediction over the grid (detect/predict.predict_collisions),
@@ -162,8 +129,9 @@ def _predict_device(state, traj, cfg: SystemConfig, horizon: float,
         state, traj, index, cfg, horizon=horizon, step=step)
     other = state.oid[other.to(torch.int64)]
     zero = torch.zeros((), dtype=torch.int32, device=state.device)
-    return _compact(state.oid, other, valid, risk, ttc, dist, cfg, r_cap) + (
-        grid_overflow(index, cfg).to(torch.int32), zero, zero)
+    return Predicted(*compact_predicted(state.oid, other, valid, risk, ttc,
+                                        dist, cfg, r_cap),
+                     grid_overflow(index, cfg).to(torch.int32), zero, zero)
 
 
 class SceneHost:
@@ -241,7 +209,8 @@ class Scene(SceneHost):
                  chunk_size: Optional[int] = None,
                  window_rows: Optional[int] = None,
                  auto_window: bool = True, interpret: bool = False,
-                 auto_retune_every: int = 0, device=None):
+                 auto_retune_every: int = 0, history_points: int = 16,
+                 device=None):
         """backend='fused' runs step() on the cell list and the detection
         kernel (both detection modes, big fleets) and predict() on the
         predict kernel; detect() always uses the exact reference-shaped
@@ -258,7 +227,11 @@ class Scene(SceneHost):
         auto_retune_every=K (0 = off) additionally runs retune() every K
         steps — the periodic-readjustment analog of the reference's 10 s
         adjust_grid_resolution timer (spatial_index.py:40,302-336),
-        covering the SHRINK direction regrow never takes."""
+        covering the SHRINK direction regrow never takes.
+
+        history_points: the length of each object's trajectory ring, which
+        record_trajectories() fills and predict() classifies (the
+        reference keeps 100 points, collision_detection.py:538-539)."""
         self.device = resolve_device(device)
         fresh = state is None
         if fresh:
@@ -305,6 +278,7 @@ class Scene(SceneHost):
         self._device_lock = threading.RLock()
         self._num_alive = 0 if fresh else int(state.alive.sum())
         self._traj = None          # TrajectoryHistory, created on first use
+        self._history_points = history_points
         self._traj_clock = 0.0
         self._predict_slots = 8        # fused-predict per-object k_slots
                                        # (self-heals on slot overflow)
@@ -725,7 +699,9 @@ class Scene(SceneHost):
         with self._device_lock:
             self._flush_locked()
             if self._traj is None:
-                self._traj = empty_history(self.state.n, device=self.device)
+                self._traj = empty_history(self.state.n,
+                                           self._history_points,
+                                           device=self.device)
             self._traj_clock += dt if dt is not None else self.cfg.sim.dt
             self._traj = update_history(self._traj, self.state,
                                         self._traj_clock)
@@ -740,9 +716,9 @@ class Scene(SceneHost):
         Requires >= 2 record_trajectories() calls; objects with less history
         are covered by the plain detect() path (reference :590-592).
 
-        The fused backend runs the predict kernel (kernels/refine.
-        fused_predict; its overflow is 0 by construction), the xla backend
-        the grid path. The call's counters land in self.last_predict
+        The fused backend runs engine.make_predict's call (the predict
+        kernel; its overflow is 0 by construction), the xla backend the
+        grid path. The call's counters land in self.last_predict
         (slot_oflow == overflow == 0 certifies the predicted list)."""
         a = self.cfg.alerts
         with self._device_lock:
@@ -755,9 +731,10 @@ class Scene(SceneHost):
 
             def run():
                 if use_fused:
-                    res = _predict_device_fused(
-                        self.state, self._traj, self.cfg, horizon, step,
-                        r_cap, k_slots=self._predict_slots)
+                    res = make_predict(
+                        self.cfg, horizon, step, k_slots=self._predict_slots,
+                        r_cap=r_cap, device=self.device)(self.state,
+                                                         self._traj)
                 else:
                     res = _predict_device(self.state, self._traj, self.cfg,
                                           horizon, step, r_cap)

@@ -39,8 +39,8 @@ import numpy as np
 import torch
 
 from tpu_collide_torch.alerts.extract import AlertBatch
-from tpu_collide_torch.api.scene import (_TYPE_INDEX, SceneHost, _compact,
-                                         _host_view, _host_view_tensors)
+from tpu_collide_torch.api.scene import (_TYPE_INDEX, SceneHost, _host_view,
+                                         _host_view_tensors)
 from tpu_collide_torch.core.config import SystemConfig
 from tpu_collide_torch.core.device import to_host, to_host_async
 from tpu_collide_torch.core.state import (FIELDS, ObjectState, conform_fleet,
@@ -48,6 +48,7 @@ from tpu_collide_torch.core.state import (FIELDS, ObjectState, conform_fleet,
 from tpu_collide_torch.core.types import CollisionRisk, LocationData
 from tpu_collide_torch.core.utils import Timer, get_logger
 from tpu_collide_torch.detect.predict import empty_history, update_history
+from tpu_collide_torch.engine import compact_predicted
 from tpu_collide_torch.index.grid import cell_coords
 from tpu_collide_torch.shard.balance import LoadBalancer, shard_occupancy
 from tpu_collide_torch.shard.predict import (distribute_history,
@@ -452,8 +453,8 @@ class ShardedScene(SceneHost):
             row_oid = (_cat_rows(res[5]) if use_fused
                        else _cat_rows([st.oid for st in self.state]))
             dropped, oflow = res[-2:]
-            fetched = to_host(list(_compact(row_oid, other, valid, risk,
-                                            ttc, dist, self.cfg, r_cap))
+            fetched = to_host(list(compact_predicted(
+                row_oid, other, valid, risk, ttc, dist, self.cfg, r_cap))
                               + [dropped.sum(dtype=torch.int32),
                                  oflow.sum(dtype=torch.int32)])
         top_r, voids, ooids, t_sel, d_sel, total, dropped, oflow = fetched

@@ -160,8 +160,11 @@ class CircuitBreaker:
 # port's fused step names its layers and its host waits so (tc.step,
 # tc.integrate, tc.cell_list, tc.refine, tc.detect_kernel, tc.hot_pairs,
 # tc.host_wait; in precise mode tc.survivor_cut and tc.precise_sweep inside
-# tc.refine). The range is a FUNCTION-scope record (_RecordFunctionFast),
-# not torch.profiler.record_function: a user-scope range gets a device-side
+# tc.refine), and prediction its own (tc.predict around engine.make_predict's
+# call, with tc.classify, tc.predict_kernel, tc.predict_merge and
+# tc.predict_topup inside it; tc.history around each ring update). The range
+# is a FUNCTION-scope record (_RecordFunctionFast), not
+# torch.profiler.record_function: a user-scope range gets a device-side
 # twin (a gpu_user_annotation event) in a CUDA trace, which a reader of the
 # device timeline would take for a kernel. While no profiler records, a span
 # costs one flag read and hands back one shared context that does nothing.

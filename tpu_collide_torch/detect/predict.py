@@ -2,11 +2,12 @@
 tpu_collide/detect/predict.py, the CollisionPredictionModel analog).
 
   * each object's recent positions live in a ring buffer [N, H] on the
-    device (`TrajectoryHistory`, one `update_history` per tick);
+    device (`TrajectoryHistory`, one `update_history` per tick, span
+    tc.history; H = 16 unless the caller names the reference's 100);
   * `classify_trajectories` sorts each trajectory into stationary /
     constant velocity / accelerating from its history-averaged speed and
-    acceleration (0.1 thresholds); objects with fewer than 2 samples need
-    the plain detector (`needs_fallback`);
+    acceleration (0.1 thresholds; span tc.classify); objects with fewer
+    than 2 samples need the plain detector (`needs_fallback`);
   * at each offset t = 0, step, ..., the object moves to its
     class-predicted position (`_predicted_position`, current velocity and
     acceleration); candidates come from the CURRENT grid around that
@@ -33,6 +34,7 @@ from tpu_collide_torch.core.config import SystemConfig
 from tpu_collide_torch.core.device import resolve_device
 from tpu_collide_torch.core.ops import stable_topk
 from tpu_collide_torch.core.state import ObjectState
+from tpu_collide_torch.core.utils import traced
 from tpu_collide_torch.detect.pipeline import (PairSide, _norm,
                                                _pair_safe_distance,
                                                _precise_sweep, _risk_score)
@@ -57,14 +59,20 @@ class TrajectoryHistory:
     def capacity(self) -> int:
         return self.pos.shape[1]
 
+    @property
+    def device(self) -> torch.device:
+        return self.pos.device
+
     def to_numpy(self) -> dict:
         return {f: getattr(self, f).cpu().numpy() for f in HISTORY_FIELDS}
 
 
 def empty_history(n: int, capacity: int = 16, device=None
                   ) -> TrajectoryHistory:
-    """capacity=16 (not the reference's 100): classification only needs the
-    recent window. On the card unless `device` names another."""
+    """An empty ring of `capacity` points an object: 16 by default, where
+    classification reads the recent window; the reference keeps 100
+    (collision_detection.py:538-539). On the card unless `device` names
+    another."""
     device = resolve_device(device)
     return TrajectoryHistory(
         pos=torch.zeros((n, capacity, 3), dtype=torch.float32, device=device),
@@ -90,6 +98,7 @@ def history_from_jax_numpy(d: Mapping[str, np.ndarray], device=None
                              count=i32(d["count"]), head=i32(d["head"]))
 
 
+@traced("tc.history")
 def update_history(hist: TrajectoryHistory, state: ObjectState,
                    timestamp) -> TrajectoryHistory:
     """Append the fleet's current positions, one write per alive object
@@ -126,6 +135,7 @@ def _chronological(hist: TrajectoryHistory):
     return hist.pos[rows, order], hist.t[rows, order], valid
 
 
+@traced("tc.classify")
 def classify_trajectories(hist: TrajectoryHistory) -> torch.Tensor:
     """[N] int32 trajectory class from history-averaged speed and
     acceleration (reference _analyze_trajectory_pattern)."""

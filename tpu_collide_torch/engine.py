@@ -11,10 +11,16 @@ here it is plain PyTorch), the default as in the JAX package; `chunk_size`
 runs its detection over row blocks so that the [rows, K] pair tables stay
 small at large N. State stays on its device between steps; a step allocates
 its outputs and does not change the input state in place.
+
+Prediction (`make_predict`) runs beside the step: classify each object's
+trajectory ring, the predict kernel's per-offset slots, the recompute and
+merge per pair (kernels/refine.fused_predict), then the compaction of the
+merged risks to the highest qualifying entries on the device.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
@@ -23,6 +29,7 @@ from tpu_collide_torch.alerts.extract import (AlertBatch, alert_batch,
                                               scene_top)
 from tpu_collide_torch.core.config import SystemConfig
 from tpu_collide_torch.core.device import check_on, resolve_device
+from tpu_collide_torch.core.ops import stable_topk
 from tpu_collide_torch.core.state import ObjectState
 from tpu_collide_torch.core.utils import span
 from tpu_collide_torch.detect.pipeline import (PairRisks, detect_pairs,
@@ -30,7 +37,8 @@ from tpu_collide_torch.detect.pipeline import (PairRisks, detect_pairs,
 from tpu_collide_torch.index.grid import build_grid
 from tpu_collide_torch.kernels.cell_list import build_cell_list
 from tpu_collide_torch.kernels.fused_detect import fused_topk
-from tpu_collide_torch.kernels.refine import (fused_scene_fast,
+from tpu_collide_torch.kernels.refine import (fused_predict,
+                                              fused_scene_fast,
                                               fused_scene_precise)
 from tpu_collide_torch.sim.integrator import integrate
 
@@ -265,3 +273,64 @@ def make_detect(cfg: SystemConfig, device=None):
         return detect_only(state, cfg)
 
     return detect
+
+
+# ---- prediction -----------------------------------------------------------
+
+class Predicted(NamedTuple):
+    """A prediction compacted on the device: the r = min(r_cap, N *
+    merge_k) highest qualifying merged entries (risk >= risk_low), ties by
+    the lower flat index as the JAX package's top_k breaks them; entries
+    past `count` carry risk -1. Then the call's counters."""
+    risk: torch.Tensor          # [r] f32
+    vehicle_oid: torch.Tensor   # [r] int32
+    other_oid: torch.Tensor     # [r] int32
+    ttc: torch.Tensor           # [r] f32 seconds from now
+    dist: torch.Tensor          # [r] f32
+    count: torch.Tensor         # [] int32 qualifying merged entries
+    overflow: torch.Tensor      # [] int32 candidates beyond capacity
+    slot_oflow: torch.Tensor    # [] int32 uncertified slot truncations
+    slot_trunc: torch.Tensor    # [] int32 all counted slot truncations
+
+
+def compact_predicted(oid, other, valid, risk, ttc, dist, cfg: SystemConfig,
+                      r_cap: int) -> tuple:
+    """The first six fields of Predicted from [N, merge_k] merged risks;
+    `oid` names each row's object."""
+    kk = risk.shape[1]
+    keep = valid & (risk >= cfg.alerts.risk_low)
+    keyv = torch.where(keep, risk, torch.full_like(risk, -1.0)).reshape(-1)
+    top_r, top_i = stable_topk(keyv, min(r_cap, keyv.numel()))
+    sel = lambda x: x.reshape(-1)[top_i]
+    return (top_r, oid[top_i // kk], sel(other), sel(ttc), sel(dist),
+            keep.sum(dtype=torch.int32))
+
+
+def make_predict(cfg: SystemConfig, horizon: float = 10.0, step: float = 0.5,
+                 sub_window: float = 1.0, merge_k: int = 32, k_slots: int = 8,
+                 r_cap: int | None = None, device=None):
+    """Returns fn(state, hist) -> Predicted: trajectory prediction through
+    the predict kernel (kernels/refine.fused_predict) at the offsets 0,
+    step, ... below horizon, each re-detected over a `sub_window` sampled
+    sweep, merged per pair over each object's top merge_k pool entries,
+    compacted to r_cap entries (default max_scene_alerts).
+    overflow == slot_oflow == 0 certifies the list; a caller that sees
+    slot_oflow > 0 raises k_slots (Scene.predict doubles it up to K_MAX).
+    The state and the ring must lie on `device`, the card unless another
+    is named. One call is one tc.predict span."""
+    dev = resolve_device(device)
+    cap = cfg.alerts.max_scene_alerts if r_cap is None else r_cap
+
+    def predict(state: ObjectState, hist) -> Predicted:
+        check_on(state, dev, "predict")
+        check_on(hist, dev, "predict")
+        with span("tc.predict"):
+            (other, valid, risk, ttc, dist, overflow, slot_oflow,
+             slot_trunc) = fused_predict(
+                 state, hist, cfg, horizon=horizon, step=step,
+                 sub_window=sub_window, merge_k=merge_k, k_slots=k_slots)
+            return Predicted(*compact_predicted(
+                state.oid, other, valid, risk, ttc, dist, cfg, cap),
+                overflow.to(torch.int32), slot_oflow, slot_trunc)
+
+    return predict

@@ -14,7 +14,8 @@ prediction's (the port of tpu_collide/kernels/refine.py).
   * prediction (`fused_predict`): the predict kernel's per-offset slots
     -> the selected pairs recomputed -> merge per pair in sorted-row
     space, with the truncation certificate and its hot top-up -> scatter
-    back to object order.
+    back to object order (spans tc.predict_kernel, tc.predict_merge,
+    tc.predict_topup).
 
 The recomputation uses the stage functions of detect/pipeline.py, so alert
 and predicted-risk values follow the reference path's math. The alert
@@ -590,30 +591,35 @@ def fused_predict_rows(state, cls, cfg: SystemConfig, horizon: float = 10.0,
     m = cl.n
     # halo mirrors (shard/predict.py) are candidates only: no query rows
     own = cl.own
-    s = predict_topk(cl, cfg, offs, k_slots, sub_steps)
+    with span("tc.predict_kernel"):
+        s = predict_topk(cl, cfg, offs, k_slots, sub_steps)
 
-    # recompute the occupied slots' pairs
-    at = ((s.idx >= 0) & own[None, :, None]).nonzero(as_tuple=True)
-    cand = s.idx[at].to(torch.int64)
-    vals = _predict_pairs(cl, at[1], cand, offs[at[0]], cfg, sub_window)
-    slot_cols = tuple(
-        x.permute(1, 0, 2).reshape(m, n_off * k_slots)
-        for x in _pool((n_off, m, k_slots), dev, at, vals))
-    *merged, kth = merge_pair_risks(*slot_cols, merge_k, return_kth=True)
+    with span("tc.predict_merge"):
+        # recompute the occupied slots' pairs
+        at = ((s.idx >= 0) & own[None, :, None]).nonzero(as_tuple=True)
+        cand = s.idx[at].to(torch.int64)
+        vals = _predict_pairs(cl, at[1], cand, offs[at[0]], cfg, sub_window)
+        slot_cols = tuple(
+            x.permute(1, 0, 2).reshape(m, n_off * k_slots)
+            for x in _pool((n_off, m, k_slots), dev, at, vals))
+        *merged, kth = merge_pair_risks(*slot_cols, merge_k, return_kth=True)
 
-    # hits beyond k_slots at one offset never reach the merge: count them,
-    # and certify those that could not have entered the merged top merge_k
-    excess = torch.where(own[None, :], torch.clamp_min(s.emitted - k_slots, 0),
-                         torch.zeros_like(s.emitted))
-    slot_trunc = excess.sum(dtype=torch.int32)
-    bound = s.keys[:, :, k_slots - 1] + PREDICT_KEY_MARGIN
-    uncert = (excess > 0) & (bound >= kth[None, :])
-    slot_oflow = torch.where(uncert, excess,
-                             torch.zeros_like(excess)).sum(dtype=torch.int32)
+        # hits beyond k_slots at one offset never reach the merge: count
+        # them, and certify those that could not have entered the merged
+        # top merge_k
+        excess = torch.where(own[None, :],
+                             torch.clamp_min(s.emitted - k_slots, 0),
+                             torch.zeros_like(s.emitted))
+        slot_trunc = excess.sum(dtype=torch.int32)
+        bound = s.keys[:, :, k_slots - 1] + PREDICT_KEY_MARGIN
+        uncert = (excess > 0) & (bound >= kth[None, :])
+        slot_oflow = torch.where(uncert, excess, torch.zeros_like(
+            excess)).sum(dtype=torch.int32)
     if det.hot_topup > 0:
-        merged, slot_oflow = _predict_hot_topup(
-            cl, cfg, offs, uncert, excess, k_slots, slot_cols, merged,
-            merge_k, sub_window)
+        with span("tc.predict_topup"):
+            merged, slot_oflow = _predict_hot_topup(
+                cl, cfg, offs, uncert, excess, k_slots, slot_cols, merged,
+                merge_k, sub_window)
     soid = torch.where(own, cl.oid_decoded, torch.full_like(cl.oid, -1))
     return tuple(merged) + (soid, own, cl.overflow, slot_oflow, slot_trunc)
 
