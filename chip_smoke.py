@@ -38,8 +38,19 @@ Phases, one JSON line each (any failure raises and exits non-zero):
   predict_path     trajectory prediction at the size of bench.py's predict
                    row: 100k city-skew objects, 4 fused steps each followed
                    by update_history, then engine.make_predict (k_slots
-                   16, merge_k 32, horizon 10 s at 0.5 s); the kernel
+                   16, merge_k 32, horizon 10 s at 0.5 s), one predict
+                   and one merge kernel launch a call; the kernel
                    against its plain version on the first and last offset
+  predict_merge    the prediction's merge kernel (predict_merge_phase)
+                   bit-equal to its plain version (the dense pool and
+                   merge_pair_risks; every output and kth as raw bits) on
+                   predict_path's slots over all 20 offsets and on the warn
+                   cell's 1M-3D slots (perfbench/configs/
+                   drones_1m_3d_warn.json after its ring's 100 ticks) at
+                   k_slots 8 and 32; the wrapper's launches in a CUDA
+                   graph, CUDA-event ms, graph-replayed device ms, the
+                   plain version's ms, library_ms (merge_pair_risks over
+                   the pool already built) and the kernel's byte bound
   predict_oracle   fused_predict (the kernel) against predict_collisions
                    (the grid path) on a 20k uniform fleet whose buckets do
                    not truncate
@@ -234,7 +245,8 @@ sharded_serving, bench and scale, the predict kernel's on predict_path,
 scene and sharded_serving, the co-sort's on cosort_vs_plain, the scene
 cut's on main_path's fast steps and in its phase, the sweep kernel's
 on main_path's precise steps and in its phase, the record kernel's on
-main_path's steps and in its phase; the sum, and
+main_path's steps and in its phase, the merge kernel's on predict_path
+and in its phase; the sum, and
 each path's in launches_by_path), their times and their bounds;
 the last line
 is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -4141,6 +4153,128 @@ def cell_records_phase(smi, torch, dev, main_runs) -> dict:
     return dict(launches=cell_records.launches - start, lines=lines)
 
 
+# the warn cell's deployment: 1M drones, 20 offsets, merge_k 32
+WARN_CONF = ROOT / "perfbench" / "configs" / "drones_1m_3d_warn.json"
+WARN_SEED = 2 ** 31 + 24
+
+
+def merge_inputs(cl, cfg, offs, k_slots, sub_steps, sub_window, torch):
+    """(shape, at, vals) as fused_predict_rows hands them to
+    refine.merge_slots: the predict kernel's slots over `offs`, the own
+    rows' occupied ones and their recomputed pairs."""
+    from tpu_collide_torch.kernels.fused_detect import predict_topk
+    from tpu_collide_torch.kernels.refine import _predict_pairs
+    s = predict_topk(cl, cfg, offs, k_slots, sub_steps)
+    at = ((s.idx >= 0) & cl.own[None, :, None]).nonzero(as_tuple=True)
+    vals = _predict_pairs(cl, at[1], s.idx[at].to(torch.int64), offs[at[0]],
+                          cfg, sub_window)
+    return tuple(s.idx.shape), at, vals
+
+
+def predict_merge_check(name, shape, at, vals, merge_k, smi, torch) -> dict:
+    """The merge kernel (refine.merge_slots) against merge_slots_plain on
+    one slot set: the [m, merge_k] (other, valid, risk, ttc, dist) and kth
+    equal as raw bits. Then the wrapper's launches in a CUDA graph, its
+    CUDA-event ms, its device ms (graph_ms), the plain version's ms (the
+    dense pool built and merged), library_ms (merge_pair_risks alone over
+    the pool already built: its row sorts, scans and scatters) and the
+    kernel's bound: each (offset, row)'s prefix sum (4 bytes), each
+    occupied slot's index and recomputed pair (25) and each row's kth (4)
+    read or written once, and the outputs (17 bytes an entry) written
+    once; the counts and the prefix sum before the kernel are not in it."""
+    from tpu_collide_torch.kernels.refine import (_pool, merge_pair_risks,
+                                                  merge_slots,
+                                                  merge_slots_plain)
+    n_off, m, k_slots = shape
+    before = merge_slots.launches
+    got = merge_slots(shape, at, vals, merge_k)
+    want = merge_slots_plain(shape, at, vals, merge_k)
+    torch.cuda.synchronize()
+    if merge_slots.launches != before + 1:
+        raise AssertionError(f"predict_merge {name}: the kernel did not run")
+    for field, g, w in zip(("other", "valid", "risk", "ttc", "dist", "kth"),
+                           got, want):
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        bad = (g != w).reshape(m, -1).any(dim=1).nonzero()
+        if bad.numel():
+            raise AssertionError(
+                f"predict_merge {name}: {field} differs in {bad.numel()} "
+                f"rows, the first {bad[:3].flatten().tolist()}")
+    p = at[0].numel()
+    run = lambda: merge_slots(shape, at, vals, merge_k)
+    seen = graph_launches(run, torch)
+    pool = [x.permute(1, 0, 2).reshape(m, n_off * k_slots)
+            for x in _pool(shape, at[0].device, at, vals)]
+    line = dict(
+        phase="predict_merge", case=name, rows=m, offsets=n_off,
+        k_slots=k_slots, merge_k=merge_k, occupied=p,
+        hits=int(vals[1].sum()), kept=int(got[1].sum()),
+        full_rows=int((got[5] >= 0).sum()), bit_equal=True,
+        launches=seen[0], memsets=seen[1], ms=median_ms(run, torch),
+        device_ms=graph_ms(run, torch),
+        plain_ms=median_ms(lambda: merge_slots_plain(shape, at, vals,
+                                                     merge_k),
+                           torch, repeats=3),
+        library_ms=median_ms(lambda: merge_pair_risks(*pool, merge_k,
+                                                      return_kth=True),
+                             torch, repeats=3),
+        **bound(n_off * m * 4 + p * 25 + m * 4 + m * merge_k * 17, 0),
+        card=smi)
+    emit(line)
+    return line
+
+
+def predict_merge_phase(smi, torch, dev, cases) -> dict:
+    """The prediction's merge kernel (csrc/predict_merge.cu) bit-equal to
+    its plain version on the card: on `cases` (name -> (merge_inputs'
+    slots, merge_k)), then at the warn cell's 1M-3D slots (WARN_CONF: its
+    fleet after its ring's 100 ticks of fused steps, 20 offsets, merge_k
+    32) at k_slots 8, the cell's, and 32, Scene.predict's doubling (640
+    columns a row). Returns {"launches": kernel calls in the phase,
+    "lines": its lines by case}."""
+    from perfbench.fleet import make_fleet
+    from tpu_collide_torch.core.config import SystemConfig
+    from tpu_collide_torch.core.state import ObjectState
+    from tpu_collide_torch.detect.predict import (classify_trajectories,
+                                                  empty_history,
+                                                  predict_offsets,
+                                                  sub_window_config,
+                                                  update_history)
+    from tpu_collide_torch.engine import make_step
+    from tpu_collide_torch.kernels.cell_list import build_cell_list
+    from tpu_collide_torch.kernels.refine import merge_slots
+    start = merge_slots.launches
+    lines = {name: predict_merge_check(name, *slots, merge_k, smi, torch)
+             for name, (slots, merge_k) in cases.items()}
+    conf = json.loads(WARN_CONF.read_text())
+    cfg = SystemConfig.from_json(json.dumps(conf["system"]))
+    pc = conf["predict"]
+    state = ObjectState(**make_fleet(conf["system"], conf["vehicle_sizes"],
+                                     {"speed": [5.0, 20.0]}, WARN_SEED,
+                                     dev))
+    step = make_step(cfg, backend="fused", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(WARN_SEED)
+    hist = empty_history(cfg.num_objects, pc["history_points"], device=dev)
+    for tick in range(1, pc["history_points"] + 1):
+        state, _ = step(state, gen)
+        hist = update_history(hist, state, tick * cfg.sim.dt)
+    cl = build_cell_list(state, cfg, cls=classify_trajectories(hist))
+    del state, hist, step
+    offs = torch.tensor(predict_offsets(pc["horizon"], pc["step"]),
+                        dtype=torch.float32, device=dev)
+    sub = sub_window_config(cfg.detect, pc["sub_window"]).num_time_steps
+    for k_slots in (pc["k_slots"], 32):
+        name = f"1m_3d_warn_k{k_slots}"
+        slots = merge_inputs(cl, cfg, offs, k_slots, sub, pc["sub_window"],
+                             torch)
+        lines[name] = predict_merge_check(name, *slots, pc["merge_k"], smi,
+                                          torch)
+        del slots
+        torch.cuda.empty_cache()
+    return dict(launches=merge_slots.launches - start, lines=lines)
+
+
 def by_oid_state(host, torch):
     """The alive objects of a collected state in oid order."""
     from tpu_collide_torch.core.state import FIELDS
@@ -4181,7 +4315,7 @@ def main() -> None:
                                                       kernel_launches,
                                                       launch_plan,
                                                       network_stages)
-    from tpu_collide_torch.kernels.refine import fused_predict
+    from tpu_collide_torch.kernels.refine import fused_predict, merge_slots
     from tpu_collide_torch.kernels.tune import suggest_cell_capacity
     from tpu_collide_torch.sim import generate_fleet
     import numpy as np
@@ -4445,13 +4579,14 @@ def main() -> None:
     r_cap = min(cfg.alerts.max_scene_alerts, cfg.num_objects * 32)
     run = lambda: make_predict(cfg, HORIZON, PRED_STEP, k_slots=K_SLOTS,
                                r_cap=r_cap, device=dev)(state, hist)
-    predict_topk.launches = 0
+    predict_topk.launches = merge_slots.launches = 0
     out = run()
     ms_per_predict = median_ms(run, torch)
-    n_pred = predict_topk.launches
-    if n_pred != 2 + REPEATS:
-        raise AssertionError(f"predict_path: {n_pred} kernel launches in "
-                             f"{2 + REPEATS} predict calls")
+    n_pred, n_merge = predict_topk.launches, merge_slots.launches
+    if n_pred != 2 + REPEATS or n_merge != 2 + REPEATS:
+        raise AssertionError(f"predict_path: {n_pred} predict and {n_merge} "
+                             f"merge kernel launches in {2 + REPEATS} "
+                             f"predict calls")
     count = check_prediction(out, cfg, cfg.num_objects, r_cap, torch)
     overflow, slot_oflow, slot_trunc = (int(x) for x in out[6:9])
     if overflow != 0:
@@ -4459,7 +4594,8 @@ def main() -> None:
     line = dict(
         phase="predict_path", config="100k_2d_cityskew_predict",
         classes=classes, ms_per_predict=ms_per_predict,
-        calls_timed=REPEATS, kernel_launches=n_pred, risks=count,
+        calls_timed=REPEATS, kernel_launches=n_pred,
+        merge_launches=n_merge, risks=count,
         returned=min(count, r_cap), max_risk=float(out[0][0]),
         overflow=overflow, slot_oflow=slot_oflow, slot_trunc=slot_trunc,
         card=smi)
@@ -4493,6 +4629,11 @@ def main() -> None:
                 kernel_vs_plain_first_last=res,
                 phase_seconds=time.perf_counter() - t_phase)
     emit(line)
+
+    # ---- predict_merge: the merge kernel on predict_path's slots (all
+    # offsets, make_predict's merge_k 32) and the warn cell's ----
+    merge = predict_merge_phase(smi, torch, dev, {"100k_2d_cityskew": (
+        merge_inputs(cl, cfg, offs, K_SLOTS, SUB_STEPS, 1.0, torch), 32)})
 
     # ---- predict_oracle: the kernel path against the grid path ----
     base = cfg100k.replace(num_objects=20_000)
@@ -4848,6 +4989,20 @@ def main() -> None:
                         plain_ms=records10m["plain_ms"],
                         bound_ms=records10m["bound_ms"],
                         bound_by=records10m["bound_by"], library_ms=None))
+    merge1m = merge["lines"]["1m_3d_warn_k8"]
+    kernels.append(dict(name="predict_merge", route="cuda",
+                        source="tpu_collide_torch/csrc/predict_merge.cu",
+                        replaces=None,
+                        launches=n_merge + merge["launches"],
+                        launches_by_path=dict(
+                            predict_path=n_merge,
+                            predict_merge=merge["launches"]),
+                        max_abs_err=0.0, ms=merge1m["ms"],
+                        device_ms=merge1m["device_ms"],
+                        plain_ms=merge1m["plain_ms"],
+                        bound_ms=merge1m["bound_ms"],
+                        bound_by=merge1m["bound_by"],
+                        library_ms=merge1m["library_ms"]))
     for kr in kernels:
         for path, n in kr["launches_by_path"].items():
             if n == 0:

@@ -40,7 +40,9 @@ from tpu_collide_torch.kernels.fused_detect import (predict_topk,
                                                     predict_topk_plain)
 from tpu_collide_torch.kernels.refine import fused_predict
 from chip_smoke import PRED_QUEUE, WARP, dense_fleet, predict_edges
+from tpu_collide_torch.shard.halo import XCHG_FIELDS, extend_with_halo
 from tests.torch_parity import both_states, np_fleet, to_torch_cfg
+from predict_merge_cases import adversarial_slots, assert_bits_equal
 
 torch.set_num_threads(1)
 TOL = 1e-5
@@ -533,6 +535,123 @@ def test_predict_device_paths_agree_with_jax():
         assert set(gm) == set(wm)
         for k in wm:
             np.testing.assert_allclose(gm[k], wm[k], rtol=TOL, atol=TOL)
+
+
+# ---- the merge per row (refine.merge_slots) -----------------------------
+
+def _merge_rule(shape, at, vals, merge_k):
+    """merge_slots by the rule its kernel (csrc/predict_merge.cu) follows, a
+    row at a time in numpy: the row's valid hits (hit, risk >= 0) keyed by
+    the risk's bits above and the column's complement below (-0.0 as +0.0);
+    the merge_k largest keys kept, kth the last one's risk (-1 short of
+    merge_k); the kept ranked by (other ascending, key descending), the
+    first of each other id written there, every other place the fill."""
+    n_off, m, k_slots = shape
+    o, r, s = (x.numpy() for x in at)
+    other, hit, risk, ttc, dist = (x.numpy() for x in vals)
+    out = [np.zeros((m, merge_k), np.int32), np.zeros((m, merge_k), bool),
+           np.zeros((m, merge_k), np.float32),
+           np.full((m, merge_k), np.inf, np.float32),
+           np.full((m, merge_k), np.inf, np.float32)]
+    kth = np.full(m, -1.0, np.float32)
+    col = (o * k_slots + s).astype(np.uint64)
+    key = (((risk + np.float32(0.0)).view(np.uint32).astype(np.uint64)
+            << np.uint64(32)) | (np.uint64(0xFFFFFFFF) - col))
+    ok = hit & (risk >= 0.0)
+    for row in range(m):
+        e = np.nonzero(ok & (r == row))[0]
+        kept = e[np.argsort(key[e])[::-1][:merge_k]]
+        if e.size >= merge_k:
+            kth[row] = risk[kept[-1]]
+        kept = kept[np.lexsort((~key[kept], other[kept]))]
+        for j, x in enumerate(kept):
+            if j == 0 or other[x] != other[kept[j - 1]]:
+                for buf, v in zip(out, (other, hit, risk, ttc, dist)):
+                    buf[row, j] = v[x]
+    return tuple(torch.from_numpy(x) for x in out) + (torch.from_numpy(kth),)
+
+
+@pytest.mark.parametrize("n_off,m,k_slots,merge_k", [
+    (20, 64, 8, 32), (20, 48, 32, 32), (5, 40, 1, 4), (40, 24, 4, 32),
+    (16, 40, 8, 100), (20, 24, 32, 300), (4, 24, 8, 300)])
+def test_merge_slots_follows_the_kernels_rule(n_off, m, k_slots, merge_k):
+    """The plain merge (the dense pool and merge_pair_risks) and the rule
+    the kernel computes give the same bits on slot sets made to break a
+    merge (tests/predict_merge_cases.adversarial_slots): full
+    rows, rows past merge_k, one id at several offsets at equal and
+    unequal risks, equal risks in different columns, empty rows."""
+    slots = adversarial_slots(n_off, m, k_slots, 7 + m)
+    got = refine.merge_slots(*slots, merge_k)
+    assert_bits_equal(got, _merge_rule(*slots, merge_k))
+    # no row holds merge_k hits where merge_k passes its columns
+    assert bool(got[1].any())
+    assert bool((got[5] >= 0).any()) == (merge_k <= n_off * k_slots)
+
+
+_ROWS_INPUTS = {}
+
+
+def _rows_inputs(halo):
+    """(cfg, state, classes) of the dense fleet; with `halo`, its last 150
+    objects are marked halo mirrors (shard/halo.extend_with_halo), as a
+    shard's prediction holds them: candidates only."""
+    if halo not in _ROWS_INPUTS:
+        _, tcfg, st, th = _port_inputs("dense")
+        cls = tpred.classify_trajectories(th)
+        if halo:
+            own_n = st.n - 150
+            own = dataclasses.replace(st, **{
+                f: getattr(st, f)[:own_n] for f in XCHG_FIELDS + ("alive",)})
+            st = extend_with_halo(
+                own, {f: getattr(st, f)[own_n:] for f in XCHG_FIELDS},
+                torch.ones(st.n - own_n, dtype=torch.bool), mark_halo=True)
+        _ROWS_INPUTS[halo] = (tcfg, st, cls)
+    return _ROWS_INPUTS[halo]
+
+
+def _dense_pool_rows(shape, at, vals, rows):
+    """The hot top-up's pool as it was taken before merge_slots: the rows
+    of the whole dense pool."""
+    n_off, m, k_slots = shape
+    return [x.permute(1, 0, 2).reshape(m, n_off * k_slots)[rows]
+            for x in refine._pool(shape, rows.device, at, vals)]
+
+
+@pytest.mark.parametrize("halo", [False, True])
+@pytest.mark.parametrize("merge_k", [4, 32])
+@pytest.mark.parametrize("k_slots", [1, 8, 32])
+def test_predict_rows_equal_the_dense_pool_path(monkeypatch, k_slots, merge_k,
+                                                halo):
+    """fused_predict_rows on the dense fleet as it runs (the hot top-up's
+    pool built from the occupied slots of its rows), with the hot top-up's
+    pool cut from the whole dense pool as before, and with the merge done
+    by the kernel's rule: the same lists, counters and kth. At k_slots 1
+    truncations go uncertified and the hot top-up runs."""
+    cfg, st, cls = _rows_inputs(halo)
+    kths, topups = [], []
+    merge, pool_rows = refine.merge_slots, refine._slot_pool_rows
+
+    def run(merge_fn, pool_fn):
+        def spy(*a):
+            out = merge_fn(*a)
+            kths.append(out[5])
+            return out
+        monkeypatch.setattr(refine, "merge_slots", spy)
+        monkeypatch.setattr(refine, "_slot_pool_rows",
+                            lambda *a: topups.append(1) or pool_fn(*a))
+        return refine.fused_predict_rows(st, cls, cfg, horizon=5.0, step=0.5,
+                                         merge_k=merge_k, k_slots=k_slots)
+
+    got = run(merge, pool_rows)
+    assert bool(got[1].any())
+    if k_slots == 1:
+        assert int(got[9]) > 0 and topups
+    for want in (run(merge, _dense_pool_rows), run(_merge_rule, pool_rows)):
+        assert_bits_equal(got, want)
+    for kth in kths[1:]:
+        assert torch.equal(kth.view(torch.int32), kths[0].view(torch.int32))
+    if halo:
+        assert not bool(got[1][~got[6]].any())
 
 
 @pytest.mark.slow

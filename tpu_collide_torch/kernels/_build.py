@@ -151,6 +151,9 @@ def open_library(csrc: Path) -> ctypes.CDLL:
         lib.tc_cell_records.argtypes = [vp] * 11 + [ctypes.c_longlong, vp,
                                                     vp, vp, vp]
         lib.tc_cell_records.restype = ci
+    if hasattr(lib, "tc_predict_merge"):      # not in older copies of csrc
+        lib.tc_predict_merge.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 8
+        lib.tc_predict_merge.restype = ci
     lib.tc_error_string.argtypes = [ci]
     lib.tc_error_string.restype = ctypes.c_char_p
     return lib

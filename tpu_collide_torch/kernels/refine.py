@@ -26,7 +26,8 @@ keys keeps the same entries in every run. The fast mode's scene top-A
 (`scene_cut`) is a CUDA kernel on the card (csrc/scene_cut.cu) and the
 flat cut `scene_cut_plain` on the CPU; the precise mode's sweep
 (detect/pipeline._precise_sweep) likewise (csrc/precise_sweep.cu, and
-`precise_sweep_plain` on the CPU).
+`precise_sweep_plain` on the CPU), and the prediction's merge per row
+(`merge_slots`: csrc/predict_merge.cu, and `merge_slots_plain`).
 """
 from __future__ import annotations
 
@@ -466,8 +467,104 @@ def _pool(shape, dev, at, values):
     return out
 
 
+# the most kept hits a row the kernel holds in shared memory
+# (csrc/predict_merge.cu SMEM_CAP); past it they go to a global scratch
+MERGE_SMEM_CAP = 256
+
+
+def merge_slots(shape, at, vals, merge_k: int):
+    """The fused prediction's merge per row. `at` holds the indices into
+    the predict slots of `shape` (n_off, m, k_slots) of the occupied ones,
+    as nonzero(as_tuple=True) of their mask gives them, and `vals` the five
+    recomputed columns (other int32, hit bool, risk, ttc, dist f32) [P] of
+    those slots in at's order. Returns merge_pair_risks(..., return_kth=
+    True) over each row's pool of n_off * k_slots columns, column offset *
+    k_slots + slot and the fill where a slot is empty: (other, valid, risk,
+    ttc, dist) [m, merge_k] and kth [m].
+
+    CUDA tensors launch the kernel (csrc/predict_merge.cu, which builds no
+    pool) or raise, and count the call in `merge_slots.launches`; CPU
+    tensors take merge_slots_plain. Both give the same bits on the card."""
+    dev = at[0].device
+    if dev.type == "cuda":
+        out = _merge_slots_launch(shape, at, vals, merge_k)
+        merge_slots.launches += 1
+        return out
+    if dev.type == "cpu":
+        return merge_slots_plain(shape, at, vals, merge_k)
+    raise ValueError(f"merge_slots has no kernel for device {dev}")
+
+
+merge_slots.launches = 0
+
+
+def merge_slots_plain(shape, at, vals, merge_k: int):
+    """merge_slots in plain PyTorch on any device: the dense pool and
+    merge_pair_risks."""
+    n_off, m, k_slots = shape
+    slot_cols = tuple(x.permute(1, 0, 2).reshape(m, n_off * k_slots)
+                      for x in _pool(shape, at[0].device, at, vals))
+    return merge_pair_risks(*slot_cols, merge_k, return_kth=True)
+
+
+def _merge_slots_launch(shape, at, vals, merge_k: int):
+    n_off, m, k_slots = shape
+    dev = at[0].device
+    p = at[0].numel()
+    if merge_k < 1 or max(p, n_off * m, n_off * k_slots) >= 2 ** 31:
+        raise ValueError(f"merge_slots: the kernel merges no {merge_k} of "
+                         f"{p} occupied slots in {tuple(shape)} (merge_k "
+                         f">= 1; fewer than 2^31 occupied slots, (offset, "
+                         f"row) pairs and columns)")
+    # the occupied slots of each (offset, row) end here in at's order
+    counts = torch.zeros((n_off * m,), dtype=torch.int32, device=dev)
+    counts.index_add_(0, at[0] * m + at[1],
+                      torch.ones((p,), dtype=torch.int32, device=dev))
+    ends = torch.cumsum(counts, 0, dtype=torch.int32)
+    slot = at[2].contiguous()
+    other, hit, risk, ttc, dist = vals
+    _check_inputs("merge_slots", dev, (
+        ("ends", ends, torch.int32, (n_off * m,)),
+        ("slot", slot, torch.int64, (p,)),
+        ("other", other, torch.int32, (p,)),
+        ("hit", hit, torch.bool, (p,)),
+        ("risk", risk, torch.float32, (p,)),
+        ("ttc", ttc, torch.float32, (p,)),
+        ("dist", dist, torch.float32, (p,))))
+    out = (torch.empty((m, merge_k), dtype=torch.int32, device=dev),
+           torch.empty((m, merge_k), dtype=torch.bool, device=dev),
+           *(torch.empty((m, merge_k), dtype=torch.float32, device=dev)
+             for _ in range(3)),
+           torch.empty((m,), dtype=torch.float32, device=dev))
+    # a row keeps at most cap hits: 16 bytes each
+    cap = min(merge_k, n_off * k_slots)
+    scratch = (torch.empty((m, 2 * cap), dtype=torch.int64, device=dev)
+               if cap > MERGE_SMEM_CAP else None)
+    launch("merge_slots", "tc_predict_merge", dev,
+           ends.data_ptr(), slot.data_ptr(), other.data_ptr(),
+           hit.data_ptr(), risk.data_ptr(), ttc.data_ptr(), dist.data_ptr(),
+           n_off, m, k_slots, merge_k, *(x.data_ptr() for x in out),
+           None if scratch is None else scratch.data_ptr())
+    return out
+
+
+def _slot_pool_rows(shape, at, vals, rows):
+    """The pool columns (other, hit, risk, ttc, dist) [len(rows), n_off *
+    k_slots] of `rows` (distinct), as merge_slots_plain's pool holds them,
+    built from the occupied slots (merge_slots' arguments) alone."""
+    n_off, m, k_slots = shape
+    h = rows.numel()
+    dev = rows.device
+    at_row = torch.full((m,), h, dtype=torch.int64, device=dev)
+    at_row[rows] = torch.arange(h, device=dev)
+    # the slots of other rows land in one dump row, dropped
+    bufs = _pool((h + 1, n_off, k_slots), dev, (at_row[at[1]], at[0], at[2]),
+                 vals)
+    return [x[:-1].reshape(h, n_off * k_slots) for x in bufs]
+
+
 def _predict_hot_topup(cl: CellList, cfg: SystemConfig, offs, uncert,
-                       excess, k_slots: int, slot_cols, merged,
+                       excess, k_slots: int, slot_at, slot_vals, merged,
                        merge_k: int, sub_window: float):
     """Exact re-merge for the rows whose per-offset truncations the
     certificate could not prove harmless (the JAX package's
@@ -475,7 +572,8 @@ def _predict_hot_topup(cl: CellList, cfg: SystemConfig, offs, uncert,
     HOT_F flagged (offset, row) pairs with the most uncertified excess are
     recomputed over the exact stencil runs of the row's predicted cell at
     that offset; their exact top-merge_k replaces that offset's slot columns
-    in the merge pool of the up to H_U rows with the most excess, which are
+    in the merge pool of the up to H_U rows with the most excess (built from
+    the occupied slots `slot_at`, `slot_vals` of merge_slots), which are
     merged again. Adding entries only raises a row's merge_k-th pool risk,
     so certificates already granted stay sound.
 
@@ -538,7 +636,7 @@ def _predict_hot_topup(cl: CellList, cfg: SystemConfig, offs, uncert,
     # supersedes them, and both would put one (pair, offset) twice
     keep_cols = ~recomp[:-1].reshape(h_u, n_off).repeat_interleave(
         k_slots, dim=1)
-    pool = [s[urows] for s in slot_cols]
+    pool = _slot_pool_rows((n_off, m, k_slots), slot_at, slot_vals, urows)
     pool[1] = pool[1] & keep_cols
     remerged = merge_pair_risks(
         *[torch.cat([a, b], dim=1) for a, b in zip(pool, xcols)], merge_k)
@@ -584,25 +682,20 @@ def fused_predict_rows(state, cls, cfg: SystemConfig, horizon: float = 10.0,
         raise ValueError(f"no prediction offsets below horizon {horizon} "
                          f"at step {step}")
     offs = torch.tensor(offsets, dtype=torch.float32, device=dev)
-    n_off = offs.numel()
     # the kernel sweeps as many samples as the refine's _precise_sweep
     sub_steps = sub_window_config(det, sub_window).num_time_steps
     cl = build_cell_list(state, cfg, cls=cls)
-    m = cl.n
     # halo mirrors (shard/predict.py) are candidates only: no query rows
     own = cl.own
     with span("tc.predict_kernel"):
         s = predict_topk(cl, cfg, offs, k_slots, sub_steps)
 
     with span("tc.predict_merge"):
-        # recompute the occupied slots' pairs
+        # recompute the occupied slots' pairs, and merge them per row
         at = ((s.idx >= 0) & own[None, :, None]).nonzero(as_tuple=True)
         cand = s.idx[at].to(torch.int64)
         vals = _predict_pairs(cl, at[1], cand, offs[at[0]], cfg, sub_window)
-        slot_cols = tuple(
-            x.permute(1, 0, 2).reshape(m, n_off * k_slots)
-            for x in _pool((n_off, m, k_slots), dev, at, vals))
-        *merged, kth = merge_pair_risks(*slot_cols, merge_k, return_kth=True)
+        *merged, kth = merge_slots(s.idx.shape, at, vals, merge_k)
 
         # hits beyond k_slots at one offset never reach the merge: count
         # them, and certify those that could not have entered the merged
@@ -618,7 +711,7 @@ def fused_predict_rows(state, cls, cfg: SystemConfig, horizon: float = 10.0,
     if det.hot_topup > 0:
         with span("tc.predict_topup"):
             merged, slot_oflow = _predict_hot_topup(
-                cl, cfg, offs, uncert, excess, k_slots, slot_cols, merged,
+                cl, cfg, offs, uncert, excess, k_slots, at, vals, merged,
                 merge_k, sub_window)
     soid = torch.where(own, cl.oid_decoded, torch.full_like(cl.oid, -1))
     return tuple(merged) + (soid, own, cl.overflow, slot_oflow, slot_trunc)
