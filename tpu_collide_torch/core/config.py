@@ -10,6 +10,9 @@ Fields that only shaped the TPU kernel's layout (`GridConfig.band_cells`,
 `GridConfig.cand_lanes`, `GridConfig.wide_oid`) are accepted and ignored by
 the port, as are the kernel gates (`DetectionConfig.gate_stage1`,
 `gate_stage2`), which only ever skipped work.
+
+`DetectionConfig.hot_cover` is the port's own (see PORT_ONLY): which rows
+of the fast tail the hot top-up covers and the certificate counts.
 """
 from __future__ import annotations
 
@@ -45,6 +48,15 @@ class GridConfig:
     cand_lanes: int | None = None
 
 
+HOT_COVERS = ("count", "cut")
+
+# The port's fields that the JAX package's config does not have, with their
+# defaults: to_json leaves such a field out while it holds its default, so
+# that a port config crosses to the JAX package whenever it asks for
+# nothing the JAX package lacks.
+PORT_ONLY = {"detect": {"hot_cover": "count"}}
+
+
 @dataclasses.dataclass(frozen=True)
 class DetectionConfig:
     """Canonical 4-stage detection semantics (see tpu_collide's copy for the
@@ -69,6 +81,12 @@ class DetectionConfig:
     precise_survivor_cap: int | None = None
     survivor_k: int = 8
     hot_topup: int = 8
+    # which rows the fast tail's hot top-up covers and alert_overflow
+    # counts: 'count' = every own row with more qualifying pairs than
+    # slots, the hottest first (the JAX package's rule); 'cut' = only the
+    # rows whose dropped pairs can rank in the scene list
+    # (kernels/refine._reaching_rows), in fast mode on one device
+    hot_cover: str = "count"
     # 'physical' or 'reference' (the reference's closest-approach sign bug,
     # DEVIATIONS.md #1)
     convention: str = "physical"
@@ -78,6 +96,11 @@ class DetectionConfig:
     gate_stage1: bool = False
     # False: num_pairs_checked reports -1
     count_checked: bool = True
+
+    def __post_init__(self):
+        if self.hot_cover not in HOT_COVERS:
+            raise ValueError(f"hot_cover {self.hot_cover!r} is not one of "
+                             f"{HOT_COVERS}")
 
     @property
     def num_time_steps(self) -> int:
@@ -173,7 +196,12 @@ class SystemConfig:
         return self.stencil_size * self.grid.cell_capacity
 
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2)
+        d = dataclasses.asdict(self)
+        for group, defaults in PORT_ONLY.items():
+            for name, default in defaults.items():
+                if d[group][name] == default:
+                    del d[group][name]
+        return json.dumps(d, indent=2)
 
     @classmethod
     def from_json(cls, s: str) -> "SystemConfig":

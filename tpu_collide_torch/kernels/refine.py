@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from contextlib import nullcontext
 
 import torch
 
@@ -159,17 +160,20 @@ def _alert_batch(valid, ref: RefinedPairs, size: int) -> AlertBatch:
     )
 
 
-def _hot_rows(cl: CellList, cfg: SystemConfig, count: torch.Tensor, k: int):
+def _hot_rows(cl: CellList, cfg: SystemConfig, count: torch.Tensor, k: int,
+              hot: torch.Tensor | None = None):
     """The hot rows: own rows (never halo mirrors) with more than k of
     `count` [m] (qualifying pairs in fast mode, stage-2 survivors in precise
-    mode), the up to `hot_topup` hottest of them. Rows beyond the cap stay
-    counted in alert_overflow.
+    mode), or the rows `hot` [m] bool names (a subset of those), the up to
+    `hot_topup` hottest of them. Rows beyond the cap stay counted in
+    alert_overflow.
 
     Returns (covered [m] bool, rows [h] int64). Waits for the device once,
     to learn whether any row is hot."""
     H = cfg.detect.hot_topup
     m = count.numel()
-    hot = cl.own & (count > k)
+    if hot is None:
+        hot = cl.own & (count > k)
     hot_rank = torch.where(hot, count.to(torch.float32),
                            torch.full_like(count, -1, dtype=torch.float32))
     top_q, hot_rows = topk_low_index(hot_rank, min(H, m))
@@ -181,8 +185,10 @@ def _hot_rows(cl: CellList, cfg: SystemConfig, count: torch.Tensor, k: int):
     return covered, rows
 
 
-def _hot_topup(cl: CellList, cfg: SystemConfig, qual: torch.Tensor, k: int):
-    """Exact top-up for the hot rows of fast mode (see _hot_rows): their
+def _hot_topup(cl: CellList, cfg: SystemConfig, qual: torch.Tensor, k: int,
+               hot: torch.Tensor | None = None):
+    """Exact top-up for the hot rows of fast mode (see _hot_rows; `hot`
+    names the candidates, by default every own row with qual > k): their
     whole stencil neighbourhood (the runs the kernel walks) is recomputed;
     their pairs replace their slots in the scene selection.
 
@@ -190,7 +196,7 @@ def _hot_topup(cl: CellList, cfg: SystemConfig, qual: torch.Tensor, k: int):
     qualifying), hown [P], hcand [P] int64 sorted indices). Waits for the
     device once, to learn whether any row is hot, and once more for the
     pair count when one is."""
-    covered, rows = _hot_rows(cl, cfg, qual, k)
+    covered, rows = _hot_rows(cl, cfg, qual, k, hot)
     if rows.numel() == 0:
         empty = torch.zeros((0,), dtype=torch.int64, device=qual.device)
         return covered, empty.to(torch.float32), empty, empty
@@ -291,6 +297,32 @@ def _scene_cut_launch(keys, own, covered, hkey, a) -> SceneCut:
     return out
 
 
+def _reaching_rows(keys: torch.Tensor, own: torch.Tensor,
+                   hot: torch.Tensor, a: int) -> torch.Tensor:
+    """[m] bool: the rows of `hot` (own rows with qual > k) whose dropped
+    pairs can rank in a scene list of the `a` best qualifying pairs
+    (hot_cover 'cut').
+
+    A row keeps its k best pairs by the scene key and drops only pairs
+    that rank at or below its k-th slot key keys[:, k-1]. The a-th best
+    slot key of the own rows, L, is no higher than the a-th best key of all
+    qualifying pairs, since the slots are some of them. So a dropped pair
+    can belong in the list only if its row has qual > k and a k-th slot key
+    >= L (ties at L included); each such row holds k slot keys >= L, so at
+    most (a + the ties at L) / k rows reach, at any density. Where fewer
+    than a slot keys qualify there is no L, and every row with qual > k
+    reaches. The cut is scene_cut over the own slots, nothing covered and
+    no hot keys; nothing waits for the device."""
+    m, k = keys.shape
+    if a == 0:
+        return torch.zeros_like(hot)
+    if a > m * k:
+        return hot
+    none = torch.zeros_like(own)
+    cut = scene_cut(keys, own, none, keys.new_zeros((0,)), a)
+    return hot & ((cut.count < a) | (keys[:, k - 1] >= cut.top_key[a - 1]))
+
+
 @traced("tc.refine")
 def fused_scene_fast(cl: CellList, cfg: SystemConfig,
                      topk=fused_topk) -> FusedSceneResult:
@@ -304,17 +336,31 @@ def fused_scene_fast(cl: CellList, cfg: SystemConfig,
 
     Only own rows (`cl.own`) emit alerts and count in num_risks and
     alert_overflow; num_checked and max_risk take every row, halo mirrors
-    included, as in the JAX package."""
+    included, as in the JAX package.
+
+    cfg.detect.hot_cover picks the rows that the hot top-up covers and
+    alert_overflow counts: 'count', every own row with qual > k, the
+    hottest first; 'cut', only those that can reach the scene list
+    (_reaching_rows, inside span tc.hot_cover), so that the certificate
+    stays bounded however dense the fleet. Under either, alert_overflow 0
+    means that the list holds the max_scene_alerts best qualifying
+    pairs."""
     with span("tc.detect_kernel"):
         s = topk(cl, cfg, mode="hits")
     keys, idx = s.keys, s.idx
     m, k = keys.shape
     own = cl.own
-    if cfg.detect.hot_topup > 0:
-        covered, hkey, hown, hcand = _hot_topup(cl, cfg, s.qual, k)
-    else:
-        covered = torch.zeros((m,), dtype=torch.bool, device=keys.device)
-        hkey = keys.new_zeros((0,))
+    cut_rule = cfg.detect.hot_cover == "cut"
+    hot = own & (s.qual > k)
+    with span("tc.hot_cover") if cut_rule else nullcontext():
+        if cut_rule:
+            hot = _reaching_rows(keys, own, hot, cfg.alerts.max_scene_alerts)
+        if cfg.detect.hot_topup > 0:
+            covered, hkey, hown, hcand = _hot_topup(cl, cfg, s.qual, k, hot)
+        else:
+            covered = torch.zeros((m,), dtype=torch.bool,
+                                  device=keys.device)
+            hkey = keys.new_zeros((0,))
     mk = m * k
     cut = scene_cut(keys, own, covered, hkey,
                     min(cfg.alerts.max_scene_alerts, mk + hkey.numel()))
@@ -338,9 +384,8 @@ def fused_scene_fast(cl: CellList, cfg: SystemConfig,
         num_checked=s.checked.to(torch.int32),
         num_risks=torch.where(own, s.emitted, zero).sum(dtype=torch.int32),
         max_risk=cut.max_risk,
-        alert_overflow=torch.where(
-            own & ~covered, torch.clamp_min(s.qual - k, 0),
-            zero).sum(dtype=torch.int32),
+        alert_overflow=torch.where(hot & ~covered, s.qual - k,
+                                   zero).sum(dtype=torch.int32),
     )
 
 
@@ -355,7 +400,11 @@ def fused_scene_precise(cl: CellList, cfg: SystemConfig,
     _hot_rows) have their whole stencil neighbourhood swept in place of
     their slots, as fast mode's _hot_topup recomputes it, so a step with no
     more than `hot_topup` such rows is complete. The JAX package has no such
-    top-up in precise mode: there every hot row counts in alert_overflow."""
+    top-up in precise mode: there every hot row counts in alert_overflow.
+    hot_cover 'cut' is a fast-mode rule and is refused here."""
+    if cfg.detect.hot_cover != "count":
+        raise ValueError(f"hot_cover {cfg.detect.hot_cover!r} exists in "
+                         f"fast mode only")
     with span("tc.detect_kernel"):
         s = topk(cl, cfg, mode="survivors")
     keys, idx = s.keys, s.idx

@@ -345,9 +345,14 @@ def _detect_tail_fused(states, cfg: SystemConfig, mesh: Mesh, walls):
 _TAILS = {"xla": _detect_tail_xla, "fused": _detect_tail_fused}
 
 
-def _tail(backend: str):
+def _tail(backend: str, cfg: SystemConfig):
+    """The detection tail of a backend. Refuses hot_cover 'cut', a rule of
+    the fast tail on one device."""
     if backend not in _TAILS:
         raise ValueError(f"unknown backend {backend!r}")
+    if cfg.detect.hot_cover != "count":
+        raise ValueError(f"hot_cover {cfg.detect.hot_cover!r} is not taken "
+                         f"by the sharded step")
     return _TAILS[backend]
 
 
@@ -412,7 +417,7 @@ def make_sharded_step(cfg: SystemConfig, mesh: Mesh, donate: bool = True,
     draws. `donate`, `interpret` and `window_rows` are accepted for the
     JAX package's signature and ignored."""
     del donate, interpret, window_rows
-    tail = _tail(backend)
+    tail = _tail(backend, cfg)
     defaults = _default_walls(cfg, mesh)
 
     def one(states, hists, gens, walls, draws):
@@ -498,7 +503,7 @@ def make_sharded_scenario_step(cfg: SystemConfig, mesh: Mesh, roads,
     of scenario_integrate per shard. `donate`, `interpret` and
     `window_rows` are accepted and ignored."""
     del donate, interpret, window_rows
-    tail = _tail(backend)
+    tail = _tail(backend, cfg)
     defaults = _default_walls(cfg, mesh)
     on = lambda x, dev: dataclasses.replace(x, **{
         f.name: getattr(x, f.name).to(dev) for f in dataclasses.fields(x)})
