@@ -9,6 +9,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
   detect_plan      the detection kernel's launch plan (lanes per object,
                    blocks, threads, shared memory) as the library makes it
                    against kernels/fused_detect.launch_plan
+  predict_plan     the same of the predict kernel (lanes per (offset, row),
+                   blocks, threads, shared memory) against
+                   kernels/fused_detect.predict_plan
   kernel_vs_plain  the CUDA fused_topk against its plain PyTorch version on
                    one cell list, bit for bit, 2D and 3D, both modes: a
                    20k-object city-skew fleet (its blocks span the ends of
@@ -33,21 +36,31 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                    the CUDA predict kernel against its plain version on one
                    cell list, all 20 offsets, bit for bit: 20k-object 2D and
                    3D fleets, and a dense fleet (dense_fleet) at k = 1, 8
-                   and 16 that fills and wraps the kernel's ring of stage-1
-                   survivors and evicts slots
+                   and 16 whose lists outrun a group's round, which wraps
+                   the warps' rings of stage-1 survivors and evicts slots;
+                   the dense fleet at 1 and 30 offsets too (with
+                   predict_path's and the warn cell's these take every
+                   width of the kernel's launch plan)
   predict_path     trajectory prediction at the size of bench.py's predict
                    row: 100k city-skew objects, 4 fused steps each followed
                    by update_history, then engine.make_predict (k_slots
                    16, merge_k 32, horizon 10 s at 0.5 s), one predict
                    and one merge kernel launch a call; the kernel
-                   against its plain version on the first and last offset
+                   against its plain version on 6 of the 20 offsets (the
+                   width the plan gives all 20), and at all 20 its plan,
+                   device ms with and without the sweep (sub_steps 0) and
+                   bound (predict_kernel_split)
   predict_merge    the prediction's merge kernel (predict_merge_phase)
                    bit-equal to its plain version (the dense pool and
                    merge_pair_risks; every output and kth as raw bits) on
                    predict_path's slots over all 20 offsets and on the warn
                    cell's 1M-3D slots (perfbench/configs/
                    drones_1m_3d_warn.json after its ring's 100 ticks) at
-                   k_slots 8 and 32; the wrapper's launches in a CUDA
+                   k_slots 8 and 32 (before them a predict_kernel line:
+                   predict_kernel_split at the warn cell's shape, k 8, and
+                   the predict kernel against its plain version at the
+                   last offset, the cell's width in 3D);
+                   the wrapper's launches in a CUDA
                    graph, CUDA-event ms, graph-replayed device ms, the
                    plain version's ms, library_ms (merge_pair_risks over
                    the pool already built) and the kernel's byte bound
@@ -280,6 +293,9 @@ ORACLE_TOL = 1e-5
 # k_slots 16, merge_k 32 (the default), a 1 s sub-window at time_step
 # 0.1 s, so 10 sweep samples
 HORIZON, PRED_STEP, K_SLOTS, SUB_STEPS = 10.0, 0.5, 16, 10
+# predict_path's offsets (of 20) held to the plain version: as many as give
+# its 100k objects the width all 20 give, first and last among them
+PATH_OFFSETS = [0, 4, 8, 11, 15, 19]
 # bench.py's 100k row of the blocked reference-shaped step (BENCH_NOTES.md:76)
 CHUNK = 8192
 XLA_100K_STEPS = 5
@@ -287,11 +303,12 @@ XLA_100K_STEPS = 5
 # this distance of the threshold that decides it (m, m/s, s or risk units):
 # the two paths round the same f32 stage math in other orders
 FLIP_MARGIN = 1e-3
-# The predict kernel's ring of stage-1 survivors (QUEUE in
-# csrc/fused_predict.cu) and the warp's width: the dense fleet must drive a
-# run longer than twice the ring, a ring that still holds survivors after a
-# sweep round, and a last round that is not full
-PRED_QUEUE, WARP = 64, 32
+# The predict kernel's candidates a lane tests per round, its warp's ring of
+# stage-1 survivors (UNROLL and TAIL in csrc/fused_predict.cu) and the
+# warp's width: the dense fleet must drive a list longer than a group's
+# round, more survivors through a warp than its ring holds, and a last
+# sweep round that is not full
+PRED_UNROLL, PRED_TAIL, WARP = 4, 64, 32
 # dense_fleet on the card: objects in the cluster and spread over the world
 DENSE_CLUSTER, DENSE_SPREAD = 3000, 3000
 # slot counts the detection kernel is held to on the dense fleet: one, the
@@ -496,6 +513,26 @@ def predict_bound(cl, cfg, offs, slots, sub_steps, torch) -> dict:
                 hits=hits)
 
 
+def predict_kernel_split(cl, cfg, offs, k, sub_steps, torch) -> dict:
+    """The predict kernel on this cell list and these offsets: the plan of
+    the launch, its device ms a call (a CUDA graph of 10 calls) with the
+    sweep and without it (sub_steps 0: the walk, the prologue, the pairs'
+    set-up and the write-out), its bound over all offsets and the ratio."""
+    from tpu_collide_torch.kernels.fused_detect import (predict_plan,
+                                                        predict_topk)
+    run = lambda: predict_topk(cl, cfg, offs, k, sub_steps)
+    device_ms = graph_ms(run, torch)
+    walk_ms = graph_ms(lambda: predict_topk(cl, cfg, offs, k, 0), torch)
+    b = predict_bound(cl, cfg, offs, run(), sub_steps, torch)
+    if predict_topk.plan != predict_plan(cl.n, offs.numel(), k):
+        raise AssertionError(f"predict_topk recorded {predict_topk.plan}")
+    return dict(plan=predict_topk.plan, rows=cl.n,
+                offsets=offs.numel(), k=k, sub_steps=sub_steps,
+                device_ms=device_ms, sub0_device_ms=walk_ms,
+                sweep_device_ms=device_ms - walk_ms, bound=b,
+                over_bound=device_ms / b["bound_ms"])
+
+
 def dense_fleet(n_cluster, n_spread, hi, cell_size, seed) -> dict:
     """numpy arrays of a fleet that crowds one cell: n_cluster objects in a
     disc (a ball in a 3D world) of 0.45 cell sizes around a cell's centre,
@@ -540,51 +577,53 @@ def dense_fleet(n_cluster, n_spread, hi, cell_size, seed) -> dict:
 
 
 def predict_edges(cl, cfg, offs, torch) -> dict:
-    """How hard these rows drive the predict kernel's walk: the longest
-    candidate run of any (offset, row), the most stage-1 survivors of one,
-    and, at each offset, for the row with the most survivors among those
-    that lose a tenth or more of their candidates at stage 1, the ring of
-    stage-1 survivors replayed as the kernel fills it (WARP candidates of a
-    run at a time, a sweep round of WARP whenever WARP wait): the most that
-    ever waited, and the sizes of the last rounds."""
+    """How hard these rows drive the predict kernel at the width G that
+    predict_plan gives this launch, counted in plain PyTorch: the longest
+    candidate list of any (offset, row) and the most rounds of PRED_UNROLL
+    x G candidates its group walks; per warp (32 / G consecutive rows of
+    one offset) the stage-1 survivors that pass through its ring of
+    PRED_TAIL pairs: the most of any warp (more than PRED_TAIL wrap the
+    ring), and the warps whose last sweep round is not full."""
     from tpu_collide_torch.detect.predict import class_advance
     from tpu_collide_torch.kernels.cell_list import (FI, flat_cells,
                                                      stencil_runs)
-    from tpu_collide_torch.kernels.fused_detect import _pair_chunks
+    from tpu_collide_torch.kernels.fused_detect import (_pair_chunks,
+                                                        predict_plan)
     fl = cl.fields
+    width = predict_plan(cl.n, offs.numel(), 1)["width"]
+    groups, per_round = WARP // width, PRED_UNROLL * width
     rows = torch.arange(cl.n, device=fl.device)
     r2 = cfg.detect.search_radius ** 2
-    inside = lambda own, cand, pred: (own != cand) & (
-        ((fl[cand, 0:3] - pred[own]) ** 2).sum(dim=1) <= r2)
-    longest_run = most_survivors = most_waiting = 0
-    last_rounds = []
+    longest = most_rounds = most_pairs = partial = 0
     for o in range(offs.numel()):
         pred = class_advance(fl[:, 0:3], fl[:, 3:6], fl[:, 6:9],
                              fl[:, FI["cls"]], offs[o])
         cells = flat_cells(pred, cl.alive, cfg)
         start, end = stencil_runs(cl, rows, cells)
-        longest_run = max(longest_run, int((end - start).max()))
+        length = (end - start).sum(dim=1)
+        longest = max(longest, int(length.max()))
+        most_rounds = max(most_rounds,
+                          int(((length + per_round - 1) // per_round).max()))
         passed = torch.zeros(cl.n, dtype=torch.int64, device=fl.device)
         for own, cand in _pair_chunks(cl, rows, cells):
-            passed += torch.bincount(own[inside(own, cand, pred)],
-                                     minlength=cl.n)
-        most_survivors = max(most_survivors, int(passed.max()))
-        mixed = passed * 10 <= (end - start).sum(dim=1) * 9
-        if not bool(mixed.any()):
-            continue
-        i = int((passed * mixed).argmax())
-        waiting = 0
-        for j0, j1 in zip(start[i].tolist(), end[i].tolist()):
-            cand = torch.arange(j0, j1, device=fl.device)
-            ok = inside(torch.full_like(cand, i), cand, pred).tolist()
-            for b in range(0, j1 - j0, WARP):
-                waiting += sum(ok[b:b + WARP])
-                most_waiting = max(most_waiting, waiting)
-                if waiting >= WARP:
-                    waiting -= WARP
-        last_rounds.append(waiting)
-    return dict(longest_run=longest_run, most_survivors=most_survivors,
-                most_waiting=most_waiting, last_rounds=last_rounds)
+            ok = (own != cand) & (
+                ((fl[cand, 0:3] - pred[own]) ** 2).sum(dim=1) <= r2)
+            passed += torch.bincount(own[ok], minlength=cl.n)
+        warps = torch.nn.functional.pad(passed, (0, (-cl.n) % groups))
+        warps = warps.view(-1, groups).sum(dim=1)
+        most_pairs = max(most_pairs, int(warps.max()))
+        partial += int((warps % WARP != 0).sum())
+    return dict(width=width, longest_list=longest, most_rounds=most_rounds,
+                most_pairs_in_a_warp=most_pairs,
+                warps_ending_partial=partial)
+
+
+def drives_predict_kernel(edges) -> bool:
+    """predict_edges says that the rows wrap a group's round and the warp's
+    ring and end a sweep round that is not full."""
+    return (edges["most_rounds"] > 1
+            and edges["most_pairs_in_a_warp"] > PRED_TAIL
+            and edges["warps_ending_partial"] > 0)
 
 
 def risk_map(other, valid, risk, ttc) -> dict:
@@ -2649,21 +2688,17 @@ def sharded_vs_single_predict(name, cfg, mesh, states, hists, walls, hops,
     return line, run
 
 
-def predict_kernel_on_shard(cfg, mesh, states, hists, smi, torch) -> dict:
-    """The predict kernel against its plain version on the cell list that
-    make_sharded_predict(backend="fused") builds for the shard with the
-    most halo mirrors (owned rows, marked mirrors of class 0, the band
-    predict_reach wide), all offsets at k 8, bit for bit. The launches made
-    here are left out of the path's count. Returns the line's numbers."""
+def shard_predict_inputs(cfg, mesh, states, hists, torch) -> tuple:
+    """(shard, cell list, offsets, sub-steps, mirrors) of the predict
+    kernel's launch on the cell list that make_sharded_predict(
+    backend="fused") builds for the shard with the most halo mirrors
+    (owned rows, marked mirrors of class 0, the band predict_reach wide)."""
     from tpu_collide_torch.detect.predict import (classify_trajectories,
                                                   predict_offsets,
                                                   sub_window_config)
     from tpu_collide_torch.kernels.cell_list import build_cell_list
-    from tpu_collide_torch.kernels.fused_detect import (predict_topk,
-                                                        predict_topk_plain)
     from tpu_collide_torch.shard import predict_band
     from tpu_collide_torch.shard.step import _default_walls, _halo_extend
-    before = predict_topk.launches
     reach, hops, cap = predict_band(cfg, SERVING_HORIZON, SERVING_STEP)
     ext, _ = _halo_extend(states, cfg, mesh, _default_walls(cfg, mesh),
                           True, width=reach, capacity=cap, hops=hops)
@@ -2676,6 +2711,35 @@ def predict_kernel_on_shard(cfg, mesh, states, hists, smi, torch) -> dict:
     offs = torch.tensor(predict_offsets(SERVING_HORIZON, SERVING_STEP),
                         dtype=torch.float32, device=cl.fields.device)
     sub = sub_window_config(cfg.detect, 1.0).num_time_steps
+    return s, cl, offs, sub, mirrors[s]
+
+
+def uniform_shard_inputs(torch, dev) -> tuple:
+    """shard_predict_inputs of sharded_serving's sharded prediction: the
+    uniform 100k fleet of seed 0 on sharded_config()'s 8x2 shards, 4 fused
+    sharded steps with the trajectory rings; then (cfg, mesh, the tuple)."""
+    from tpu_collide_torch.shard import distribute_state, make_mesh
+    from tpu_collide_torch.sim import generate_fleet
+    cfg = sharded_config()
+    uniform = generate_fleet(torch.Generator(device=dev).manual_seed(0),
+                             cfg, "uniform")
+    mesh = make_mesh(cfg, device=dev)
+    states = distribute_state(uniform, cfg, mesh)
+    states, hists, *_ = history_steps(cfg, mesh, states, (None, None, None),
+                                      4, torch)
+    return cfg, mesh, shard_predict_inputs(cfg, mesh, states, hists, torch)
+
+
+def predict_kernel_on_shard(cfg, mesh, states, hists, smi, torch) -> dict:
+    """The predict kernel against its plain version on
+    shard_predict_inputs' cell list, all offsets at k 8, bit for bit. The
+    launches made here are left out of the path's count. Returns the
+    line's numbers."""
+    from tpu_collide_torch.kernels.fused_detect import (predict_topk,
+                                                        predict_topk_plain)
+    before = predict_topk.launches
+    s, cl, offs, sub, mirrors = shard_predict_inputs(cfg, mesh, states,
+                                                     hists, torch)
     pk = lambda: predict_topk(cl, cfg, offs, 8, sub)
     pp = lambda: predict_topk_plain(cl, cfg, offs, 8, sub)
     got, want = pk(), pp()
@@ -2684,12 +2748,10 @@ def predict_kernel_on_shard(cfg, mesh, states, hists, smi, torch) -> dict:
     if not res["bit_equal"]:
         raise AssertionError("predict kernel on a halo-extended shard: not "
                              "bit-equal to its plain version")
-    line = dict(shard=list(mesh.coords(s)), rows=cl.n,
-                owned=int(cl.own.sum()), mirrors=mirrors[s],
-                offsets=offs.numel(), k=8, sub_steps=sub, **res,
-                ms=median_ms(pk, torch), device_ms=graph_ms(pk, torch),
+    line = dict(shard=list(mesh.coords(s)), owned=int(cl.own.sum()),
+                mirrors=mirrors, **res, ms=median_ms(pk, torch),
                 plain_ms=median_ms(pp, torch, repeats=3),
-                kernel_bound=predict_bound(cl, cfg, offs, got, sub, torch))
+                **predict_kernel_split(cl, cfg, offs, 8, sub, torch))
     predict_topk.launches = before
     return line
 
@@ -4231,8 +4293,12 @@ def predict_merge_phase(smi, torch, dev, cases) -> dict:
     slots, merge_k)), then at the warn cell's 1M-3D slots (WARN_CONF: its
     fleet after its ring's 100 ticks of fused steps, 20 offsets, merge_k
     32) at k_slots 8, the cell's, and 32, Scene.predict's doubling (640
-    columns a row). Returns {"launches": kernel calls in the phase,
-    "lines": its lines by case}."""
+    columns a row). Before them the predict kernel at the warn cell's
+    shape (predict_kernel_split) and against its plain version at the last
+    offset, where 1M rows take the width all 20 offsets take. Returns
+    {"launches": merge kernel calls in the phase, "lines": its lines by
+    case, "predict_width": that width, "max_abs_err": the predict kernel's
+    largest difference from its plain version}."""
     from perfbench.fleet import make_fleet
     from tpu_collide_torch.core.config import SystemConfig
     from tpu_collide_torch.core.state import ObjectState
@@ -4243,6 +4309,9 @@ def predict_merge_phase(smi, torch, dev, cases) -> dict:
                                                   update_history)
     from tpu_collide_torch.engine import make_step
     from tpu_collide_torch.kernels.cell_list import build_cell_list
+    from tpu_collide_torch.kernels.fused_detect import (predict_plan,
+                                                        predict_topk,
+                                                        predict_topk_plain)
     from tpu_collide_torch.kernels.refine import merge_slots
     start = merge_slots.launches
     lines = {name: predict_merge_check(name, *slots, merge_k, smi, torch)
@@ -4264,6 +4333,27 @@ def predict_merge_phase(smi, torch, dev, cases) -> dict:
     offs = torch.tensor(predict_offsets(pc["horizon"], pc["step"]),
                         dtype=torch.float32, device=dev)
     sub = sub_window_config(cfg.detect, pc["sub_window"]).num_time_steps
+    # the predict kernel at the warn cell's shape (its launches stay out of
+    # the phase's count, which is the merge kernel's)
+    emit(dict(phase="predict_kernel", fleet="1m_3d_warn",
+              **predict_kernel_split(cl, cfg, offs, pc["k_slots"], sub,
+                                     torch), card=smi))
+    last = offs[-1:].contiguous()
+    got = predict_topk(cl, cfg, last, pc["k_slots"], sub)
+    plan = predict_topk.plan
+    want = predict_topk_plain(cl, cfg, last, pc["k_slots"], sub)
+    res = compare_pred_slots(got, want, pc["k_slots"], torch)
+    if not res["bit_equal"]:
+        raise AssertionError("predict kernel, warn 1M-3D last offset: not "
+                             "bit-equal")
+    if plan["width"] != predict_plan(cl.n, offs.numel(),
+                                     pc["k_slots"])["width"]:
+        raise AssertionError(f"predict kernel, warn 1M-3D last offset: "
+                             f"{plan}, not the cell's width")
+    emit(dict(phase="predict_kernel_vs_plain", fleet="1m_3d_warn",
+              offsets=1, k=pc["k_slots"], sub_steps=sub, plan=plan, **res,
+              card=smi))
+    del got, want
     for k_slots in (pc["k_slots"], 32):
         name = f"1m_3d_warn_k{k_slots}"
         slots = merge_inputs(cl, cfg, offs, k_slots, sub, pc["sub_window"],
@@ -4272,7 +4362,8 @@ def predict_merge_phase(smi, torch, dev, cases) -> dict:
                                           torch)
         del slots
         torch.cuda.empty_cache()
-    return dict(launches=merge_slots.launches - start, lines=lines)
+    return dict(launches=merge_slots.launches - start, lines=lines,
+                predict_width=plan["width"], max_abs_err=res["max_abs_err"])
 
 
 def by_oid_state(host, torch):
@@ -4305,8 +4396,8 @@ def main() -> None:
     from tpu_collide_torch.index.grid import build_grid
     from tpu_collide_torch.kernels.fused_detect import (
         PLAN_FIELDS, fused_topk, fused_topk_plain,
-        launch_plan as detect_plan, predict_topk, predict_topk_plain,
-        slot_count)
+        launch_plan as detect_plan, predict_plan, predict_topk,
+        predict_topk_plain, slot_count)
     from tpu_collide_torch.engine import (_chunked_detect_extract,
                                           detect_and_alerts, make_burst_step)
     from tpu_collide_torch.kernels.block_sort import (MAX_PAYLOADS,
@@ -4358,6 +4449,20 @@ def main() -> None:
                                  f"{list(out)}, Python {want}")
         plans[f"n{n}_k{k}"] = dict(want, blocks_per_sm=out[4])
     emit(dict(phase="detect_plan", plans=plans))
+    # the same of the predict kernel (kernels/fused_detect.predict_plan)
+    plans = {}
+    for n, n_off, k in ((1, 1, 1), (6000, 1, 8), (6000, 5, 8), (6000, 10, 8),
+                        (6000, 20, 32), (32_984, 20, 8), (100_000, 2, 16),
+                        (100_000, 20, 16), (1_000_000, 20, 8)):
+        out = (ctypes.c_int * 4)()
+        _build.load_library().tc_fused_predict_plan(n, n_off, k, out)
+        want = predict_plan(n, n_off, k)
+        if list(out) != [want[f] for f in PLAN_FIELDS]:
+            raise AssertionError(f"predict_topk plan at n {n}, {n_off} "
+                                 f"offsets, k {k}: library {list(out)}, "
+                                 f"Python {want}")
+        plans[f"n{n}_off{n_off}_k{k}"] = want
+    emit(dict(phase="predict_plan", plans=plans))
 
     # ---- kernel_vs_plain: small fleets, one cell list each ----
     widths = set()     # lanes per own object of every launch held to plain
@@ -4527,12 +4632,14 @@ def main() -> None:
     offs = torch.tensor(predict_offsets(HORIZON, PRED_STEP),
                         dtype=torch.float32, device=dev)
     pred_err = 0.0
+    pred_widths = set()   # lanes per row of every launch held to plain
     for dim, base in (("2d", cfg100k), ("3d", cfg1m)):
         fleets = predict_fleets(base, torch, dev)
         _, cfg, cl = next(fleets)
         pk = lambda: predict_topk(cl, cfg, offs, K_SLOTS, SUB_STEPS)
         pp = lambda: predict_topk_plain(cl, cfg, offs, K_SLOTS, SUB_STEPS)
         got, want = pk(), pp()
+        pred_widths.add(predict_topk.plan["width"])
         torch.cuda.synchronize()
         res = compare_pred_slots(got, want, K_SLOTS, torch)
         if not res["bit_equal"]:
@@ -4544,31 +4651,37 @@ def main() -> None:
                   ms=median_ms(pk, torch),
                   plain_ms=median_ms(pp, torch, repeats=3), card=smi))
 
-        # the dense fleet: long runs, a full ring, evicted slots
+        # the dense fleet: long runs, a full ring, evicted slots; at all
+        # 20 offsets, and at 1 and 30 (a warp a row, and 8 lanes)
         _, cfg, cl = next(fleets)
-        edges = predict_edges(cl, cfg, offs, torch)
-        if edges["longest_run"] <= 2 * PRED_QUEUE \
-                or edges["most_waiting"] <= WARP \
-                or all(r % WARP == 0 for r in edges["last_rounds"]):
-            raise AssertionError(f"dense {dim}: the fleet does not drive the "
-                                 f"kernel's ring: {edges}")
-        for k in (1, 8, K_SLOTS):
-            got = predict_topk(cl, cfg, offs, k, SUB_STEPS)
-            want = predict_topk_plain(cl, cfg, offs, k, SUB_STEPS)
-            torch.cuda.synchronize()
-            res = compare_pred_slots(got, want, k, torch)
-            most = int(got.emitted.max())
-            if not res["bit_equal"] or most <= k:
-                raise AssertionError(
-                    f"dense {dim}, k {k}: bit-equal {res['bit_equal']}, "
-                    f"largest emitted {most}")
-            pred_err = max(pred_err, res["max_abs_err"])
-            emit(dict(phase="predict_kernel_vs_plain", fleet=f"dense_{dim}",
-                      n=cl.n, offsets=offs.numel(), k=k,
-                      sub_steps=SUB_STEPS, **res, largest_emitted=most,
-                      **edges, ms=median_ms(
-                          lambda: predict_topk(cl, cfg, offs, k, SUB_STEPS),
-                          torch), card=smi))
+        for n_off, ks in ((20, (1, 8, K_SLOTS)), (1, (K_SLOTS,)),
+                          (30, (K_SLOTS,))):
+            few = offs if n_off == 20 else torch.linspace(
+                0.0, HORIZON - PRED_STEP, n_off, device=dev)
+            edges = predict_edges(cl, cfg, few, torch)
+            if not drives_predict_kernel(edges):
+                raise AssertionError(f"dense {dim}, {n_off} offsets: the "
+                                     f"fleet does not drive the kernel's "
+                                     f"rings: {edges}")
+            for k in ks:
+                got = predict_topk(cl, cfg, few, k, SUB_STEPS)
+                pred_widths.add(predict_topk.plan["width"])
+                want = predict_topk_plain(cl, cfg, few, k, SUB_STEPS)
+                torch.cuda.synchronize()
+                res = compare_pred_slots(got, want, k, torch)
+                most = int(got.emitted.max())
+                if not res["bit_equal"] or most <= k:
+                    raise AssertionError(
+                        f"dense {dim}, {n_off} offsets, k {k}: bit-equal "
+                        f"{res['bit_equal']}, largest emitted {most}")
+                pred_err = max(pred_err, res["max_abs_err"])
+                emit(dict(phase="predict_kernel_vs_plain",
+                          fleet=f"dense_{dim}", n=cl.n, offsets=n_off, k=k,
+                          sub_steps=SUB_STEPS, **res, largest_emitted=most,
+                          **edges, ms=median_ms(
+                              lambda: predict_topk(cl, cfg, few, k,
+                                                   SUB_STEPS), torch),
+                          card=smi))
 
     # ---- predict_path: bench.py's predict row (bench.py:400-450) ----
     t_phase = time.perf_counter()
@@ -4600,33 +4713,41 @@ def main() -> None:
         overflow=overflow, slot_oflow=slot_oflow, slot_trunc=slot_trunc,
         card=smi)
     # the kernel at this size: all offsets, and against its plain version
-    # on the first and the last offset (all 20 take the plain version too
-    # long)
+    # on 6 of them, which take the width all 20 take (all 20 take the plain
+    # version too long)
     cl = build_cell_list(state, cfg, cls=classify_trajectories(hist))
-    ends = offs[[0, -1]].contiguous()
-    got = predict_topk(cl, cfg, ends, K_SLOTS, SUB_STEPS)
-    want = predict_topk_plain(cl, cfg, ends, K_SLOTS, SUB_STEPS)
+    some = offs[PATH_OFFSETS].contiguous()
+    got = predict_topk(cl, cfg, some, K_SLOTS, SUB_STEPS)
+    plan = predict_topk.plan
+    if plan["width"] != predict_plan(cl.n, offs.numel(), K_SLOTS)["width"]:
+        raise AssertionError(f"predict kernel, 100k at {len(PATH_OFFSETS)} "
+                             f"offsets: {plan}, not the width of all 20")
+    pred_widths.add(plan["width"])
+    want = predict_topk_plain(cl, cfg, some, K_SLOTS, SUB_STEPS)
     res = compare_pred_slots(got, want, K_SLOTS, torch)
     if not res["bit_equal"]:
-        raise AssertionError("predict kernel, 100k first and last offset: "
-                             "not bit-equal")
+        raise AssertionError(f"predict kernel, 100k at {len(PATH_OFFSETS)} "
+                             f"offsets: not bit-equal")
     pred_err = max(pred_err, res["max_abs_err"])
     pred_ms = (
-        median_ms(lambda: predict_topk(cl, cfg, ends, K_SLOTS, SUB_STEPS),
+        median_ms(lambda: predict_topk(cl, cfg, some, K_SLOTS, SUB_STEPS),
                   torch),
-        median_ms(lambda: predict_topk_plain(cl, cfg, ends, K_SLOTS,
+        median_ms(lambda: predict_topk_plain(cl, cfg, some, K_SLOTS,
                                              SUB_STEPS), torch, repeats=3))
-    pred_bound = predict_bound(cl, cfg, ends, got, SUB_STEPS, torch)
+    pred_bound = predict_bound(cl, cfg, some, got, SUB_STEPS, torch)
     line.update(kernel_ms_all_offsets=median_ms(
                     lambda: predict_topk(cl, cfg, offs, K_SLOTS, SUB_STEPS),
                     torch),
-                kernel_ms_first_last=pred_ms[0],
-                kernel_device_ms_first_last=graph_ms(
-                    lambda: predict_topk(cl, cfg, ends, K_SLOTS, SUB_STEPS),
+                compared_offsets=PATH_OFFSETS, compared_plan=plan,
+                kernel_ms_compared=pred_ms[0],
+                kernel_device_ms_compared=graph_ms(
+                    lambda: predict_topk(cl, cfg, some, K_SLOTS, SUB_STEPS),
                     torch),
-                plain_ms_first_last=pred_ms[1],
-                kernel_bound_first_last=pred_bound,
-                kernel_vs_plain_first_last=res,
+                plain_ms_compared=pred_ms[1],
+                kernel_bound_compared=pred_bound,
+                kernel_vs_plain_compared=res,
+                kernel_all_offsets=predict_kernel_split(
+                    cl, cfg, offs, K_SLOTS, SUB_STEPS, torch),
                 phase_seconds=time.perf_counter() - t_phase)
     emit(line)
 
@@ -4634,6 +4755,11 @@ def main() -> None:
     # offsets, make_predict's merge_k 32) and the warn cell's ----
     merge = predict_merge_phase(smi, torch, dev, {"100k_2d_cityskew": (
         merge_inputs(cl, cfg, offs, K_SLOTS, SUB_STEPS, 1.0, torch), 32)})
+    pred_widths.add(merge["predict_width"])
+    pred_err = max(pred_err, merge["max_abs_err"])
+    if pred_widths != {2, 4, 8, 16, 32}:
+        raise AssertionError(f"predict kernel held to its plain version at "
+                             f"{sorted(pred_widths)} lanes per row only")
 
     # ---- predict_oracle: the kernel path against the grid path ----
     base = cfg100k.replace(num_objects=20_000)

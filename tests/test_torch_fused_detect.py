@@ -141,19 +141,70 @@ def test_launch_plan_spreads_a_fleet_over_the_card(n):
         assert (plan["blocks"] - 1) * span < n <= plan["blocks"] * span
 
 
+def _predict_plan_by_enumeration(n, n_off, k):
+    """The fewest lanes per row of 2 .. 32 with which the n * n_off rows
+    fill PRED_GRID_MIN blocks (32 when they fill them with none), by trying
+    each; a block holds PRED_THREADS / width rows of one offset."""
+    from tpu_collide_torch.kernels.fused_detect import (PRED_GRID_MIN,
+                                                        PRED_THREADS)
+    for width in (2, 4, 8, 16, 32):
+        span = PRED_THREADS // width
+        if n * n_off // span >= PRED_GRID_MIN or width == 32:
+            return dict(width=width, blocks=-(-n // span) * n_off,
+                        threads=PRED_THREADS, smem=span * k * 8)
+
+
+@pytest.mark.parametrize("n_off", [1, 2, 5, 20, 30, 60, 100])
+@pytest.mark.parametrize("n", [1, 31, 6000, 13_515, 32_984, 100_000,
+                               135_168, 1_000_000])
+def test_predict_plan_follows_the_rows(n, n_off):
+    """The predict kernel's width by launch_plan's rule over the rows
+    (objects x offsets) with its own minimum of blocks, and its blocks: a
+    block holds rows of one offset."""
+    from tpu_collide_torch.kernels.fused_detect import predict_plan
+    for k in (1, 8, 32):
+        plan = predict_plan(n, n_off, k)
+        assert plan == _predict_plan_by_enumeration(n, n_off, k)
+        span = plan["threads"] // plan["width"]
+        per_offset = plan["blocks"] // n_off
+        assert plan["blocks"] % n_off == 0
+        assert (per_offset - 1) * span < n <= per_offset * span
+    # a warp a row for small launches, two lanes a row at the warn cell
+    if n * n_off < 67_584:
+        assert predict_plan(n, n_off, 8)["width"] == 32
+    if n * n_off >= 540_672:
+        assert predict_plan(n, n_off, 8)["width"] == 2
+
+
+@pytest.mark.parametrize("around", ["own", "predicted"])
 @pytest.mark.parametrize("width", [2, 4, 8, 16, 32])
 @pytest.mark.parametrize("is3d", [False, True])
-def test_group_walk_visits_each_candidate_once(is3d, width):
-    """The stride of a group's lanes through an object's concatenated runs
-    (the kernel's settle) against a numpy enumeration of stencil_runs: lane
-    gl takes the candidates gl, gl + width, ... of the concatenation, in
-    order, so every candidate is visited once."""
-    from tpu_collide_torch.kernels.cell_list import stencil_runs
+def test_group_walk_visits_each_candidate_once(is3d, width, around):
+    """The stride of a group's lanes through a row's concatenated runs (the
+    kernels' settle) against a numpy enumeration of stencil_runs: lane gl
+    takes the candidates gl, gl + width, ... of the concatenation, in
+    order, so every candidate is visited once. The runs lie around the
+    row's own cell (detection) or around its class-predicted cell 5 s
+    ahead (prediction)."""
+    from tpu_collide_torch.detect.predict import class_advance
+    from tpu_collide_torch.kernels.cell_list import (FI, flat_cells,
+                                                     stencil_runs)
     from tpu_collide_torch.kernels.fused_detect import group_walk
     cfg, d = _fleet(is3d, n=300)
     _, st = both_states(d)
-    cl = build_cell_list(st, to_torch_cfg(cfg))
-    start, end = (t.numpy() for t in stencil_runs(cl, torch.arange(cl.n)))
+    tcfg = to_torch_cfg(cfg)
+    cls = torch.tensor(np.random.default_rng(5).integers(0, 3, st.n),
+                       dtype=torch.int32)
+    cl = build_cell_list(st, tcfg, cls=cls)
+    cells = None
+    if around == "predicted":
+        fl = cl.fields
+        pred = class_advance(fl[:, 0:3], fl[:, 3:6], fl[:, 6:9],
+                             fl[:, FI["cls"]], torch.tensor(5.0))
+        cells = flat_cells(pred, cl.alive, tcfg)
+        assert bool((cells != cl.cell.to(torch.int64))[cl.alive].any())
+    start, end = (t.numpy() for t in stencil_runs(cl, torch.arange(cl.n),
+                                                  cells))
     assert start.shape[1] == (9 if is3d else 3)
     assert (end - start).sum(axis=1).max() > 2 * width
     for i in range(cl.n):

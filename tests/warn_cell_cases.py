@@ -35,6 +35,11 @@ def card():
 def warn_fleet(card):
     """(cfg, state, trajectory classes, offsets, sub-steps) of the warn
     cell's fleet after its ring's fill."""
+    return warn_inputs(card)
+
+
+def warn_inputs(card):
+    """warn_fleet's tuple on the CUDA device `card` (also for tools)."""
     cfg = SystemConfig.from_json(json.dumps(CONF["system"]))
     pc = CONF["predict"]
     state = ObjectState(**make_fleet(CONF["system"], CONF["vehicle_sizes"],

@@ -3,7 +3,6 @@ profile of the predict call.
 
     python3 tools/torch_predict_kernel.py compare [only=CELLS] NAME=CSRC_DIR [NAME=CSRC_DIR ...]
     python3 tools/torch_predict_kernel.py profile
-    python3 tools/torch_predict_kernel.py lanes
     python3 tools/torch_predict_kernel.py samples
 
 compare: every CSRC_DIR is a full copy of tpu_collide_torch/csrc (the
@@ -11,30 +10,31 @@ package's own, the parent commit's from `git archive`, an intermediate
 state of the source). Each is built into its own library and its
 tc_fused_predict runs on the same cell lists as chip_smoke.py's predict
 phases: the 20k city-skew fleets (2D, 3D; 20 offsets), the dense fleet
-(2D, 3D; k = 1, 8, 16) and the 100k city-skew fleet of predict_path (first
-and last offset, and all 20). Per cell list one line: whether each version
-equals the plain version bit for bit (20 offsets at 100k are not compared,
-the plain version takes too long), and its median time of 10 launches taken
-in turns, first in the order given and then in reverse, so that a drift of
-the card shows as a difference between the two. only=CELLS keeps the cell
-lists whose name holds CELLS. Exits 1 if a version differs. The steps of
-the kernel's design are such copies: without the comparisons on squared
-distances (sqrtf(q2) <= q.radius at stage 1; d = sqrtf(dd2), d <= safe,
-d_hit = d in the sweep), and besides that without the ring (the sweep
-called at once, `if (__any_sync(FULL, pass)) sweep(pass, j)`, on the lanes
-that passed).
+(2D, 3D; k = 1, 8, 16), the 100k city-skew fleet of predict_path (first
+and last offset, and all 20), sharded_serving's shard (2, 0) of 100k
+uniform on 8x2 (20 offsets, k 8) and the warn cell's 1M-3D (first and last
+offset, and all 20; k 8). Per cell list one line: whether each version
+equals the plain version bit for bit (20 offsets at 100k and 1M are not
+compared, the plain version takes too long), its launch plan where the
+library reports one (tc_fused_predict_plan), and, taken in turns, first in
+the order given and then in reverse, so that a drift of the card shows as
+a difference between the two: its median time of 10 calls between CUDA
+events, its device time a call (10 calls replayed from a CUDA graph), and
+the same at sub_steps 0 (no sweep: the walk, the prologue, the pairs'
+set-up and the write-out). only=CELLS (comma-separated) keeps the cell
+lists whose name holds one of them. Exits 1 if a version differs. The
+variants of the kernel's design are such copies, made with `sed` on
+csrc/fused_predict.cu: WIDTH_MIN = 4 .. 32 (a width forced where the plan
+gives less), GRID_MIN = 1056 / 2112 / 8448 (the plan's minimum of
+blocks), UNROLL = 2 / 8, MIN_BLOCKS = 3, the shared-memory carveout
+(cudaSharedmemCarveoutMaxShared, 58); and earlier states of the source
+(the run table filled by all threads, hit counts by __match_any_sync or
+by runs of lanes, the rows' records in shared memory).
 
 profile: torch.profiler over 3 calls of engine.make_predict's call at
 predict_path's configuration (100k city skew, horizon 10 s at 0.5 s,
 k_slots 16): wall and device-busy time per call, idle share, launches,
 host waits, and the largest device items.
-
-lanes: how full the kernel's warps run at predict_path's configuration, all
-20 offsets, counted in plain PyTorch from the cell list: the (offset, row)
-warps, the candidates they walk and the 32-wide loads that takes, the pairs
-within the radius and the sweep rounds that takes (a round of 32 whenever 32
-wait, one more for the rest), and the share of lanes that hold a candidate
-in each.
 
 samples: the package's kernel on the same cell list and offsets at
 sub_steps = 0, 1, 2, 5, 10 and 20 (sub_steps only sets the length of the
@@ -56,7 +56,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+sys.path.insert(0, str(ROOT / "tests"))
+
 import chip_smoke as cs  # noqa: E402
+from warn_cell_cases import warn_inputs  # noqa: E402
 
 
 def emit(obj) -> None:
@@ -73,6 +76,15 @@ def library(lib):
         yield
     finally:
         _build.load_library = own
+
+
+def library_plan(lib, n, n_off, k) -> dict:
+    """tc_fused_predict_plan of `lib`, named as predict_plan's fields."""
+    import ctypes
+    from tpu_collide_torch.kernels.fused_detect import PLAN_FIELDS
+    out = (ctypes.c_int * len(PLAN_FIELDS))()
+    lib.tc_fused_predict_plan(n, n_off, k, out)
+    return dict(zip(PLAN_FIELDS, out))
 
 
 def cell_lists(torch, dev):
@@ -93,6 +105,19 @@ def cell_lists(torch, dev):
     yield ("100k_2d_cityskew_first_last", cl, cfg100k,
            offs[[0, -1]].contiguous(), cs.K_SLOTS, True)
     yield "100k_2d_cityskew_20_offsets", cl, cfg100k, offs, cs.K_SLOTS, False
+    del state, hist, cl
+    # sharded_serving's shard (2, 0) of 100k uniform on 8x2 (k 8)
+    cfg, _, (_, cl, s_offs, sub, _) = cs.uniform_shard_inputs(torch, dev)
+    assert sub == cs.SUB_STEPS
+    yield "shard_100k_2d_uniform_20_offsets", cl, cfg, s_offs, 8, True
+    del cl
+    # the warn cell's 1M-3D (k_slots 8)
+    cfg, state, cls, w_offs, sub = warn_inputs(dev)
+    assert sub == cs.SUB_STEPS
+    cl = build_cell_list(state, cfg, cls=cls)
+    yield ("warn_1m_3d_first_last", cl, cfg, w_offs[[0, -1]].contiguous(), 8,
+           True)
+    yield "warn_1m_3d_20_offsets", cl, cfg, w_offs, 8, False
 
 
 def compare(specs, torch, dev, smi) -> bool:
@@ -116,7 +141,7 @@ def compare(specs, torch, dev, smi) -> bool:
                          if "registers" in ln or "stack" in ln]))
     ok = True
     for name, cl, cfg, offs, k, check in cell_lists(torch, dev):
-        if only not in name:
+        if not any(part in name for part in only.split(",")):
             continue
         run = lambda: predict_topk(cl, cfg, offs, k, cs.SUB_STEPS)
         want = predict_topk_plain(cl, cfg, offs, k, cs.SUB_STEPS) \
@@ -133,11 +158,23 @@ def compare(specs, torch, dev, smi) -> bool:
                 ok &= same
                 line[f"{version}_bit_equal"] = same
             line["emitted"] = int(got.emitted.sum())
-        for tag, order in (("ms", list(libs)), ("ms_reversed",
-                                                list(libs)[::-1])):
+        # events around a call, device ms of a call replayed from a CUDA
+        # graph, and the same without the sweep (sub_steps 0): the walk,
+        # the prologue and the write-out
+        walk = lambda: predict_topk(cl, cfg, offs, k, 0)
+        for tag, order in (("", list(libs)), ("_reversed",
+                                              list(libs)[::-1])):
             for version in order:
                 with library(libs[version]):
-                    line[f"{version}_{tag}"] = cs.median_ms(run, torch)
+                    line[f"{version}_ms{tag}"] = cs.median_ms(run, torch)
+                    line[f"{version}_device_ms{tag}"] = cs.graph_ms(run,
+                                                                    torch)
+                    line[f"{version}_sub0_device_ms{tag}"] = cs.graph_ms(
+                        walk, torch)
+        for version, lib in libs.items():
+            if hasattr(lib, "tc_fused_predict_plan"):
+                line[f"{version}_plan"] = library_plan(lib, cl.n,
+                                                       offs.numel(), k)
         emit(line)
     return ok
 
@@ -187,46 +224,6 @@ def profile(torch, dev, smi) -> None:
                                    for name, us in top}, card=smi))
 
 
-def lanes(torch, dev, smi) -> None:
-    from tpu_collide_torch.detect.predict import (class_advance,
-                                                  classify_trajectories,
-                                                  predict_offsets)
-    from tpu_collide_torch.kernels.cell_list import (FI, build_cell_list,
-                                                     flat_cells, stencil_runs)
-    from tpu_collide_torch.kernels.fused_detect import _pair_chunks
-    cfg = cs.bench_configs()[0]
-    state, hist = cs.predict_path_inputs(cfg, torch, dev)
-    cl = build_cell_list(state, cfg, cls=classify_trajectories(hist))
-    offs = torch.tensor(predict_offsets(cs.HORIZON, cs.PRED_STEP),
-                        dtype=torch.float32, device=dev)
-    fl = cl.fields
-    rows = torch.arange(cl.n, device=dev)
-    r2 = cfg.detect.search_radius ** 2
-    walked = loads = inside = rounds = warps = idle = 0
-    for o in range(offs.numel()):
-        pred = class_advance(fl[:, 0:3], fl[:, 3:6], fl[:, 6:9],
-                             fl[:, FI["cls"]], offs[o])
-        cells = flat_cells(pred, cl.alive, cfg)
-        start, end = stencil_runs(cl, rows, cells)
-        walked += int((end - start).sum())
-        loads += int(((end - start + cs.WARP - 1) // cs.WARP).sum())
-        passed = torch.zeros(cl.n, dtype=torch.int64, device=dev)
-        for own, cand in _pair_chunks(cl, rows, cells):
-            ok = (own != cand) & (
-                ((fl[cand, 0:3] - pred[own]) ** 2).sum(dim=1) <= r2)
-            passed += torch.bincount(own[ok], minlength=cl.n)
-        inside += int(passed.sum())
-        rounds += int(((passed + cs.WARP - 1) // cs.WARP).sum())
-        warps += cl.n
-        idle += int((passed == 0).sum())
-    emit(dict(phase="lanes", config="100k_2d_cityskew_predict",
-              offsets=offs.numel(), warps=warps, warps_without_a_pair=idle,
-              walked=walked, walk_loads=loads,
-              walk_lane_share=walked / (cs.WARP * loads),
-              within_radius=inside, sweep_rounds=rounds,
-              sweep_lane_share=inside / (cs.WARP * rounds), card=smi))
-
-
 def samples(torch, dev, smi) -> None:
     from tpu_collide_torch.detect.predict import (classify_trajectories,
                                                   predict_offsets)
@@ -256,7 +253,7 @@ def samples(torch, dev, smi) -> None:
 
 def main() -> None:
     import torch
-    if len(sys.argv) < 2 or sys.argv[1] not in ("compare", "profile", "lanes", "samples") \
+    if len(sys.argv) < 2 or sys.argv[1] not in ("compare", "profile", "samples") \
             or (sys.argv[1] == "compare" and len(sys.argv) < 3):
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
@@ -269,8 +266,6 @@ def main() -> None:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     if sys.argv[1] == "profile":
         profile(torch, dev, smi)
-    elif sys.argv[1] == "lanes":
-        lanes(torch, dev, smi)
     elif sys.argv[1] == "samples":
         samples(torch, dev, smi)
     elif not compare(sys.argv[2:], torch, dev, smi):

@@ -1,7 +1,6 @@
 // Pieces shared by the fused kernels (fused_detect.cu, fused_predict.cu,
 // precise_sweep.cu): the pair-math constants, the sorted record layout, the
-// walk over an object's stencil runs, the top-k slot insertion and the
-// squared bound of a distance test.
+// top-k slot insertion and the squared bound of a distance test.
 #pragma once
 
 #include <cfloat>
@@ -31,29 +30,6 @@ struct Shape {
 // record layout of one sorted object (cell_list.FIELD_NAMES), 4 x float4:
 // r0 = (x, y, z, vx)  r1 = (vy, vz, ax, ay)
 // r2 = (az, size, heading, otype)  r3 = (sin_h, cos_h, cls, -)
-
-// Calls f(j0, j1) for each candidate run [j0, j1) of the 1-cell stencil
-// around cell (cx, cy, cz): with cells sorted by (z, y, x), the cells
-// cx-1 .. cx+1 of one (dz, dy) row are one contiguous run of the sorted
-// order, so the stencil is 3 runs in 2D and 9 in 3D.
-template <typename F>
-__device__ __forceinline__ void for_each_run(const int* __restrict__ cell_start,
-                                             const Shape& sh, int cx, int cy,
-                                             int cz, F&& f) {
-  const int x0 = cx > 0 ? cx - 1 : 0;
-  const int x1 = cx < sh.nx - 1 ? cx + 1 : sh.nx - 1;
-  const int dz0 = sh.is3d ? -1 : 0, dz1 = sh.is3d ? 1 : 0;
-  for (int dz = dz0; dz <= dz1; ++dz) {
-    const int z = cz + dz;
-    if (z < 0 || z >= sh.nz) continue;
-    for (int dy = -1; dy <= 1; ++dy) {
-      const int y = cy + dy;
-      if (y < 0 || y >= sh.ny) continue;
-      const int base = (z * sh.ny + y) * sh.nx;
-      f(cell_start[base + x0], cell_start[base + x1 + 1]);
-    }
-  }
-}
 
 // Inserts (key, j) into k slots kept ordered by key descending, then
 // candidate index ascending; a pair that ranks below the last slot is

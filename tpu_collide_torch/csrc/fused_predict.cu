@@ -17,38 +17,68 @@
 // Slots are ordered by (key descending, candidate sorted index ascending),
 // an empty slot is (KEY_NONE, -1); emitted counts every hit exactly.
 //
-// Design: a 2D grid, blockIdx.y = offset, one WARP per (offset, own row), so
-// a whole predict call is one launch and the crowd of a dense cell is
-// spread over 32 lanes. The warp walks the exact 3 (2D) or 9 (3D) runs
-// around its predicted cell (no window, so nothing overflows) in three
-// stages that keep the lanes busy:
-//   1. stage 1, 32 consecutive candidates of a run at a time, one per lane
-//      (the float4 loads of a warp are consecutive records);
-//   2. the lanes that pass append their candidate's index to the warp's ring
-//      in shared memory (__ballot_sync and a prefix count of the mask);
-//      whenever 32 wait, and once at the end for the rest, the warp runs
-//      the set-up and the sweep on one waiting candidate per lane, so the
-//      sweep, which is nearly all of the arithmetic, runs on full warps;
-//   3. hits are rare: after a sweep round each hit's (risk, index) goes by
-//      __shfl_sync to lane 0, which inserts it into the warp's k slots in
-//      shared memory. The slots are the k largest under a total order in
-//      which every candidate occurs once, so the order of insertion does not
-//      matter, and emitted is a count.
+// What bounds it on the card: instruction throughput and the latency of its
+// loads through L1, not device memory. Per (offset, row) the work is a
+// prologue (the predicted position, three IEEE divisions, the 3 or 9 runs'
+// bounds), a walk of its stencil (stage 1: one 16-byte load and about 10
+// operations a candidate), and the set-up, sweep and stage 4 of each
+// candidate within the radius (about 60 operations and three gathered
+// 16-byte loads, then 19-25 a sample). How these weigh depends on the
+// density (device ms a call of 20 offsets on an H100 80GB HBM3 at 700 W,
+// without the sweep in brackets):
+//   * sparse (the 1M-3D warn fleet, 2.5 objects a cell): a row walks about
+//     56 candidates in 9 runs of about 6 and keeps about 9.5. A warp per
+//     row, the first design, ran each run's round with 6 of 32 lanes live,
+//     its one sweep round with about 10, and paid the prologue 32 times
+//     over: 36.8 ms (32.8), 45x its bound. This design: 9.2 ms (8.1), the
+//     walk, the pairs' set-up and the prologue still nearly all of it.
+//   * crowded (100k city skew, 20k objects in a city core): a row walks
+//     thousands of candidates, every layout fills its lanes, and the sweep
+//     of the many pairs within the radius takes 40%: 11.6 ms (6.8) in the
+//     first design, 11.4 (7.2) in this one.
+//
+// Design (the layout of the detection kernel B1, fused_detect.cu, with its
+// own code: B1 is left as it is):
+//   1. Lanes across rows. A block owns SPAN = 256 / G consecutive sorted
+//      rows of one offset (blockIdx.y), G lanes each (2 to 32, a power of
+//      two). G is chosen per launch from the rows, n x n_off: the fewest
+//      lanes with which the launch still fills GRID_MIN blocks, B1's rule
+//      with a larger minimum. G = 32 is the first design's warp per row.
+//   2. The prologue once per row. The block's first SPAN threads compute
+//      each row's predicted position, its cell and its 3 or 9 run bounds
+//      (two reads of cell_start each) into shared memory.
+//   3. One list a row. A group walks its row's runs as ONE concatenated
+//      list, UNROLL candidates a lane and round, straight from the records
+//      (16 of a record's 64 bytes; neighbouring rows are neighbours in one
+//      cell and walk the same runs, so the L1 serves the repeats).
+//   4. Set-up, sweep and stage 4 on full warps. The stage-1 survivors of all
+//      the warp's groups go into one ring per warp as (row, candidate)
+//      pairs (__ballot_sync and a prefix count); whenever 32 wait, and once
+//      at the end, the warp runs them one per lane. B1's second ring, a
+//      group's own, is not needed: nothing runs between stage 1 and the
+//      sweep.
+//   5. Slots in shared memory, k <= 32 a row. A hit counts into its row's
+//      emitted (a shared-memory atomic); one that beats its row's last slot
+//      goes by __shfl_sync to the warp's first lane, which inserts it. The
+//      slots are the k largest under a total order in which every candidate
+//      occurs once, so the order of insertion does not matter. The block
+//      writes its slots out as one contiguous piece.
 // A distance is only ever compared with a threshold until a sample hits, so
 // the comparisons run on squared distances against sqrt_le_bound
 // (fused_common.cuh), which decides exactly as the square root would; only
 // the hit sample takes its square root.
-// What bounds it on the card: instruction issue and cache lines, not device
-// memory. The sweep's loop is 19 instructions per 2D sample without fused
-// multiply-adds and runs at about three quarters of the card's issue rate;
-// a pair's set-up is about 60 more around three gathered 16-byte loads. A
-// warp's 32 stage-1 loads are 16 bytes of every 64-byte record, so one load
-// touches 16 cache lines (served by L1 / L2: neighbouring warps are
-// neighbours in one cell and walk the same runs), and the ring costs about
-// 45 instructions per 32 candidates. 63 registers hold 32 warps on an SM;
-// more loads in flight per warp cost registers and lost more than they won.
-// Every (offset, row) pays a prologue of three IEEE divisions and six run
-// bounds. PERF.md section 6 has the measured split.
+// Tried and not kept (device ms a call at the warn shape unless said;
+// PERF.md section 6): the run table filled by all threads after the
+// prologue (integer divisions by the run count and the grid's widths: 12.2
+// against 11.4); __match_any_sync, or a count a run of lanes, in place of
+// one atomic a hit (12.0-12.6 against 11.4; better only on a fleet crowded
+// into one cell); UNROLL 2 / 8 and 3 blocks an SM (11.4, 14.0, 12.7);
+// fused_detect.cu's GRID_MIN, which gives 2 lanes a row below 540k rows
+// (100k city skew at 2 offsets: 1.87 against 1.17 at 8 lanes; a 20k
+// city-skew fleet at 20 offsets, as Scene.predict launches it: 0.66 / 0.41
+// against 0.60 / 0.30 at 4, 2D / 3D); the largest shared-memory carveout (11.4
+// against 9.3); the rows' records copied into shared memory (9.34 against
+// 9.24).
 //
 // Arithmetic follows the reference's expressions (detect/predict.py,
 // detect/pipeline.py _dist_at_time / _risk_score) in their order, and the
@@ -74,189 +104,336 @@ struct PredParams {
 };
 constexpr int N_PRED_PARAMS = sizeof(PredParams) / sizeof(float);
 
+constexpr int WARPS = 8;       // warps of a block
+constexpr int THREADS = WARPS * 32;
+constexpr int MIN_BLOCKS = 4;  // blocks an SM must hold: 64 registers a thread
+constexpr int MAX_RUNS = 9;    // stencil rows: 3 in 2D, 9 in 3D
+constexpr int UNROLL = 4;      // candidates a lane tests per round
+// a warp's ring of (row, candidate) pairs past stage 1: fewer than 32
+// waiting and up to 32 new
+constexpr int TAIL = 64;
+// Lanes per row: the fewest of WIDTH_MIN .. 32 with which the launch's rows
+// (objects x offsets) fill GRID_MIN blocks, fused_detect.cu's rule at four
+// times its minimum: eight waves of the 4 blocks each of 132 SMs holds. A
+// row's predicted cell may lie in a crowd, where a narrow group walks
+// thousands of candidates, and with few waves such blocks set the end.
+// kernels/fused_detect.py mirrors THREADS, WIDTH_MIN and GRID_MIN as
+// PRED_THREADS, PRED_WIDTH_MIN and PRED_GRID_MIN.
+constexpr int WIDTH_MIN = 2, GRID_MIN = 4224;
+constexpr unsigned FULL = 0xffffffffu;
+
+// lanes per row for a launch of `rows` (offset, object) rows
+int width_for(long long rows) {
+  int width = WIDTH_MIN;
+  while (width < 32 && rows * width < static_cast<long long>(GRID_MIN) *
+                                          THREADS)
+    width *= 2;
+  return width;
+}
+
+// rows of a block with `width` lanes per row
+constexpr int span_of(int width) { return THREADS / width; }
+
+// the dynamic shared memory of a launch: the block's slots
+constexpr int slot_bytes(int width, int k) { return span_of(width) * k * 8; }
+
+// the kernel's static shared memory (s_pred, s_run_at, s_run_end, s_emit,
+// s_tail below)
+constexpr int static_bytes(int width) {
+  return span_of(width) * (16 + 2 * MAX_RUNS * 4 + 4) + WARPS * TAIL * 8;
+}
+// A block fits the 48 KB a launch may use without leave to pass it at every
+// width (2 lanes a row holds the most rows) and k
+static_assert(static_bytes(WIDTH_MIN) + slot_bytes(WIDTH_MIN, K_MAX) <=
+                  48 * 1024,
+              "a block's shared memory passes 48 KB");
+
 __device__ __forceinline__ int clip_cell(float f, int n) {
   return static_cast<int>(fminf(fmaxf(f, 0.0f), static_cast<float>(n - 1)));
 }
 
-constexpr int WARPS = 8;    // warps, one own row each, of a block
-constexpr int QUEUE = 64;   // ring of stage-1 survivors: 32 waiting + 32 new
-constexpr unsigned FULL = 0xffffffffu;
-
 // PRODUCT: the angle term from the records' sines and cosines
 // (DetectionConfig.angle_form == "product"), else sinf of the heading
 // difference. A compile-time choice so that sinf's large-argument path and
-// its stack frame stay out of the product form.
-template <bool PRODUCT>
-__global__ void __launch_bounds__(WARPS * 32)
+// its stack frame stay out of the product form. G: lanes per row.
+template <bool PRODUCT, int G>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 fused_predict_kernel(const float4* __restrict__ rec,
                      const int* __restrict__ cell_start,
                      const float* __restrict__ offsets, Shape sh, Params p,
                      PredParams q, int sub_steps, float* __restrict__ keys,
                      int* __restrict__ idx, int* __restrict__ emitted_out) {
-  __shared__ int s_queue[WARPS][QUEUE];
-  __shared__ float s_key[WARPS][K_MAX];
-  __shared__ int s_idx[WARPS][K_MAX];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  // every branch below that holds a warp-wide primitive is taken by the
-  // whole warp: i, the runs and the ring's counters are the same in all lanes
-  const int i = blockIdx.x * WARPS + w;
-  if (i >= sh.n) return;
-  const long long row = static_cast<long long>(blockIdx.y) * sh.n + i;
-  const float t = offsets[blockIdx.y];
-  int* queue = s_queue[w];
-  float* skey = s_key[w];
-  int* sidx = s_idx[w];
-  if (lane < sh.k) {
-    skey[lane] = KEY_NONE;
-    sidx[lane] = -1;
-  }
-  __syncwarp();
-  int n_emit = 0;
-  // dead objects sort last: rows from cell_start[num_cells] on are dead
-  if (i < cell_start[sh.nx * sh.ny * sh.nz]) {
-    // the own record, read by every lane (one broadcast load each)
-    const float4 o0 = rec[4 * i], o1 = rec[4 * i + 1], o2 = rec[4 * i + 2],
-                 o3 = rec[4 * i + 3];
-    const float ox = o0.x, oy = o0.y, oz = o0.z;
-    const float ovx = o0.w, ovy = o1.x, ovz = o1.y;
-    const float oax = o1.z, oay = o1.w, oaz = o2.x;
-    const float osize = o2.y, ohead = o2.z, otype = o2.w;
-    const float osin = o3.x, ocos = o3.y, ocls = o3.z;
+  constexpr int GROUPS = 32 / G;     // rows of a warp
+  constexpr int SPAN = THREADS / G;  // rows of a block
 
-    // class-predicted own position (detect/predict.class_advance)
-    float px = ox, py = oy, pz = oz;
-    if (ocls != 0.0f) {
-      px = ox + ovx * t;
-      py = oy + ovy * t;
-      pz = oz + ovz * t;
-      if (ocls != 1.0f) {
-        px = px + 0.5f * oax * t * t;
-        py = py + 0.5f * oay * t * t;
-        pz = pz + 0.5f * oaz * t * t;
+  extern __shared__ float s_dyn[];   // the block's slots: keys, then idx
+  __shared__ float4 s_pred[SPAN];    // their predicted positions
+  // each row's runs: first candidate (sorted index) and end
+  __shared__ int s_run_at[SPAN][MAX_RUNS], s_run_end[SPAN][MAX_RUNS];
+  __shared__ int2 s_tail[WARPS][TAIL];  // (row in the block, candidate)
+  __shared__ int s_emit[SPAN];
+
+  float* s_key = s_dyn;
+  int* s_idx = reinterpret_cast<int*>(s_dyn + SPAN * sh.k);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane / G, gl = lane % G;
+  const unsigned before = (1u << lane) - 1u;  // the warp's lower lanes
+  const int runs = sh.is3d ? 9 : 3;
+  const int i0 = blockIdx.x * SPAN;
+  const int i1 = min(i0 + SPAN, sh.n);
+  const float t = offsets[blockIdx.y];
+  const long long out_row0 = static_cast<long long>(blockIdx.y) * sh.n + i0;
+
+  // the block's slots empty, and each row's prologue, by one thread a row:
+  // its class-predicted position
+  // (detect/predict.class_advance), that position's cell, floor((pred -
+  // lo) / cell_size) clipped into the grid with an IEEE division as in the
+  // cell list's build, and the runs around it. With cells sorted by (z, y,
+  // x), the cells cx-1 .. cx+1 of one (dz, dy) row are one contiguous run
+  // of the sorted order (dz outer, dy inner; empty outside the grid). Dead
+  // objects sort last (rows from cell_start[num_cells] on) and walk
+  // nothing.
+  for (int u = tid; u < SPAN * sh.k; u += THREADS) {
+    s_key[u] = KEY_NONE;
+    s_idx[u] = -1;
+  }
+  if (tid < SPAN) {
+    const int i = i0 + tid;
+    const bool live = i < i1 && i < cell_start[sh.nx * sh.ny * sh.nz];
+    float px = 0.0f, py = 0.0f, pz = 0.0f;
+    int cx = 0, cy = 0, cz = 0;
+    if (live) {
+      const float4 o0 = rec[4 * static_cast<size_t>(i)];
+      const float4 o1 = rec[4 * static_cast<size_t>(i) + 1];
+      const float4 o2 = rec[4 * static_cast<size_t>(i) + 2];
+      const float ocls = rec[4 * static_cast<size_t>(i) + 3].z;
+      px = o0.x;
+      py = o0.y;
+      pz = o0.z;
+      if (ocls != 0.0f) {
+        px = o0.x + o0.w * t;
+        py = o0.y + o1.x * t;
+        pz = o0.z + o1.y * t;
+        if (ocls != 1.0f) {
+          px = px + 0.5f * o1.z * t * t;
+          py = py + 0.5f * o1.w * t * t;
+          pz = pz + 0.5f * o2.x * t * t;
+        }
+      }
+      cx = clip_cell(floorf((px - q.lo_x) / q.cell_size), sh.nx);
+      cy = clip_cell(floorf((py - q.lo_y) / q.cell_size), sh.ny);
+      cz = clip_cell(floorf((pz - q.lo_z) / q.cell_size), sh.nz);
+    }
+    const int x0 = max(cx - 1, 0), x1 = min(cx + 1, sh.nx - 1);
+    const int dz0 = sh.is3d ? -1 : 0, dz1 = sh.is3d ? 1 : 0;
+    int r = 0;
+    for (int dz = dz0; dz <= dz1; ++dz) {
+      for (int dy = -1; dy <= 1; ++dy, ++r) {
+        const int y = cy + dy, z = cz + dz;
+        int first = 0, end = 0;
+        if (live && y >= 0 && y < sh.ny && z >= 0 && z < sh.nz) {
+          const int base = (z * sh.ny + y) * sh.nx;
+          first = cell_start[base + x0];
+          end = cell_start[base + x1 + 1];
+        }
+        s_run_at[tid][r] = first;
+        s_run_end[tid][r] = end;
       }
     }
-    // its cell, floor((pred - lo) / cell_size) clipped into the grid, with
-    // an IEEE division as in the cell list's build
-    const int cx = clip_cell(floorf((px - q.lo_x) / q.cell_size), sh.nx);
-    const int cy = clip_cell(floorf((py - q.lo_y) / q.cell_size), sh.ny);
-    const int cz = clip_cell(floorf((pz - q.lo_z) / q.cell_size), sh.nz);
-    const float radius_sq = sqrt_le_bound(q.radius);
+    s_pred[tid] = make_float4(px, py, pz, 0.0f);
+    s_emit[tid] = 0;
+  }
+  __syncthreads();
 
-    int head = 0, waiting = 0;  // the ring holds queue[head .. head + waiting)
+  // From here to the last barrier a warp works alone on its GROUPS rows, G
+  // lanes each; every branch that holds a warp-wide primitive is taken by
+  // the whole warp (the ring's counters are the same in all lanes).
+  const int me = warp * GROUPS + g;  // the group's row in the block
+  const int i = i0 + me;
+  const float4 pr = s_pred[me];
+  const float radius_sq = sqrt_le_bound(q.radius);
+  const int* run_at = s_run_at[me];
+  const int* run_end = s_run_end[me];
+  int2* tail = s_tail[warp];
 
-    // Set-up, sweep and stage 4 of the ring's first m (<= 32) candidates, one
-    // per lane, then the hits into the slots.
-    auto sweep = [&](int m) {
-      const bool active = lane < m;
-      const int j = active ? queue[(head + lane) & (QUEUE - 1)] : -1;
-      __syncwarp();  // the ring's entries are read before any is overwritten
-      head = (head + m) & (QUEUE - 1);
-      waiting -= m;
-      float risk = 0.0f;
-      bool hit = false;
-      if (active) {
-        // candidate advanced to t under constant acceleration
-        const float4 c0 = rec[4 * j], c1 = rec[4 * j + 1],
-                     c2 = rec[4 * j + 2];
-        const float sx = c0.x + c0.w * t + 0.5f * c1.z * t * t - px;
-        const float sy = c0.y + c1.x * t + 0.5f * c1.w * t * t - py;
-        const float dvx = c0.w - ovx, dvy = c1.x - ovy;
-        const float dax = c1.z - oax, day = c1.w - oay;
-        float sz = 0.0f, dvz = 0.0f, daz = 0.0f;
+  // the lane strides through the row's runs, concatenated, G candidates at
+  // a time: run r, candidate pos, the run's end lim
+  int r = 0, pos = run_at[0] + gl, lim = run_end[0];
+  auto settle = [&]() {  // past the run's end: on into the next runs
+    while (pos >= lim) {
+      const int over = pos - lim;
+      if (++r >= runs) return;
+      pos = run_at[r] + over;
+      lim = run_end[r];
+    }
+  };
+  settle();
+
+  int thead = 0, twaiting = 0;  // the ring holds [thead, thead + twaiting)
+
+  // Set-up, sweep and stage 4 of the ring's first m (<= 32) pairs, one per
+  // lane, then the hits into their rows' counts and slots. The slots are the
+  // k largest of a total order, so only hits that beat their row's last slot
+  // are inserted, one after another by the first lane.
+  auto finish = [&](int m) {
+    const bool active = lane < m;
+    int2 e = make_int2(0, 0);
+    if (active) e = tail[(thead + lane) & (TAIL - 1)];
+    __syncwarp();  // the entries are read before any is overwritten
+    thead = (thead + m) & (TAIL - 1);
+    twaiting -= m;
+    float risk = 0.0f;
+    bool hit = false;
+    if (active) {
+      const float4* own = rec + 4 * static_cast<size_t>(i0 + e.x);
+      const float4 o0 = own[0], o1 = own[1], o2 = own[2];
+      const float4 pe = s_pred[e.x];
+      const float4* c = rec + 4 * static_cast<size_t>(e.y);
+      // candidate advanced to t under constant acceleration
+      const float4 c0 = c[0], c1 = c[1], c2 = c[2];
+      const float sx = c0.x + c0.w * t + 0.5f * c1.z * t * t - pe.x;
+      const float sy = c0.y + c1.x * t + 0.5f * c1.w * t * t - pe.y;
+      const float dvx = c0.w - o0.w, dvy = c1.x - o1.x;
+      const float dax = c1.z - o1.z, day = c1.w - o1.w;
+      float sz = 0.0f, dvz = 0.0f, daz = 0.0f;
+      if (sh.is3d) {
+        sz = c0.z + c1.y * t + 0.5f * c2.x * t * t - pe.z;
+        dvz = c1.y - o1.y;
+        daz = c2.x - o2.x;
+      }
+      const float safe = (o2.y + c2.y) * 0.5f + p.safe_base;
+      const float safe_sq = sqrt_le_bound(safe);
+
+      // first sample of the sub-window sweep within the safe distance
+      float t_hit = 0.0f, d_hit = 0.0f;
+      for (int s = 0; s < sub_steps; ++s) {
+        const float ts = static_cast<float>(s) * p.dt;
+        const float tt = ts * ts;
+        const float ddx = sx + dvx * ts + 0.5f * dax * tt;
+        const float ddy = sy + dvy * ts + 0.5f * day * tt;
+        float dd2 = ddx * ddx + ddy * ddy;
         if (sh.is3d) {
-          sz = c0.z + c1.y * t + 0.5f * c2.x * t * t - pz;
-          dvz = c1.y - ovz;
-          daz = c2.x - oaz;
+          const float ddz = sz + dvz * ts + 0.5f * daz * tt;
+          dd2 = dd2 + ddz * ddz;
         }
-        const float safe = (osize + c2.y) * 0.5f + p.safe_base;
-        const float safe_sq = sqrt_le_bound(safe);
+        if (dd2 <= safe_sq) {  // sqrtf(dd2) <= safe
+          hit = true;
+          t_hit = ts;
+          d_hit = sqrtf(dd2);
+          break;
+        }
+      }
+      if (hit) {
+        // stage 4: weighted risk, the slot key
+        float rs2 = dvx * dvx + dvy * dvy;
+        if (sh.is3d) rs2 = rs2 + dvz * dvz;
+        const float ohead = o2.z, chead = c2.z;
+        float angle;
+        if (PRODUCT) {
+          const float4 o3 = own[3];
+          const float4 c3 = c[3];
+          const float sd = o3.x * c3.y - o3.y * c3.x;
+          angle = ohead >= chead ? sd : -sd;
+        } else {
+          angle = sinf(fabsf(ohead - chead));
+        }
+        risk =
+            p.w_dist * (1.0f - d_hit / safe) +
+            p.w_time * (1.0f - fminf(t_hit / p.max_warning_time, 1.0f)) +
+            p.w_speed * fminf(sqrtf(rs2) / p.max_relative_speed, 1.0f) +
+            p.w_angle * angle +
+            p.w_type * (c2.w == o2.w ? p.same_type : p.diff_type);
+        risk = fminf(fmaxf(risk, 0.0f), 1.0f);
+      }
+    }
+    bool ranks = false;
+    if (hit) {
+      atomicAdd(&s_emit[e.x], 1);
+      const float last = s_key[e.x * sh.k + sh.k - 1];
+      ranks = risk > last ||
+              (risk == last && e.y < s_idx[e.x * sh.k + sh.k - 1]);
+    }
+    unsigned todo = __ballot_sync(FULL, ranks);
+    while (todo) {
+      const int src = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const int at = __shfl_sync(FULL, e.x, src);
+      const float ks = __shfl_sync(FULL, risk, src);
+      const int js = __shfl_sync(FULL, e.y, src);
+      if (lane == 0)
+        tc::insert_slot(s_key + at * sh.k, s_idx + at * sh.k, sh.k, ks, js);
+    }
+    __syncwarp();
+  };
 
-        // first sample of the sub-window sweep within the safe distance
-        float t_hit = 0.0f, d_hit = 0.0f;
-        for (int s = 0; s < sub_steps; ++s) {
-          const float ts = static_cast<float>(s) * p.dt;
-          const float tt = ts * ts;
-          const float ddx = sx + dvx * ts + 0.5f * dax * tt;
-          const float ddy = sy + dvy * ts + 0.5f * day * tt;
-          float dd2 = ddx * ddx + ddy * ddy;
-          if (sh.is3d) {
-            const float ddz = sz + dvz * ts + 0.5f * daz * tt;
-            dd2 = dd2 + ddz * ddz;
-          }
-          if (dd2 <= safe_sq) {  // sqrtf(dd2) <= safe
-            hit = true;
-            t_hit = ts;
-            d_hit = sqrtf(dd2);
-            break;
-          }
-        }
-        if (hit) {
-          // stage 4: weighted risk, the slot key
-          float rs2 = dvx * dvx + dvy * dvy;
-          if (sh.is3d) rs2 = rs2 + dvz * dvz;
-          const float chead = c2.z;
-          float angle;
-          if (PRODUCT) {
-            const float4 c3 = rec[4 * j + 3];
-            const float sd = osin * c3.y - ocos * c3.x;
-            angle = ohead >= chead ? sd : -sd;
-          } else {
-            angle = sinf(fabsf(ohead - chead));
-          }
-          risk =
-              p.w_dist * (1.0f - d_hit / safe) +
-              p.w_time * (1.0f - fminf(t_hit / p.max_warning_time, 1.0f)) +
-              p.w_speed * fminf(sqrtf(rs2) / p.max_relative_speed, 1.0f) +
-              p.w_angle * angle +
-              p.w_type * (c2.w == otype ? p.same_type : p.diff_type);
-          risk = fminf(fmaxf(risk, 0.0f), 1.0f);
-        }
+  while (__any_sync(FULL, r < runs)) {
+    // the lane's next UNROLL candidates (-1: none)
+    int cj[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      cj[u] = r < runs ? pos : -1;
+      if (r < runs) {
+        pos += G;
+        settle();
       }
-      unsigned hits = __ballot_sync(FULL, hit);
-      n_emit += __popc(hits);
-      while (hits) {
-        const int src = __ffs(hits) - 1;
-        hits &= hits - 1;
-        const float r = __shfl_sync(FULL, risk, src);
-        const int jr = __shfl_sync(FULL, j, src);
-        if (lane == 0) tc::insert_slot(skey, sidx, sh.k, r, jr);
+    }
+    // stage 1: the candidate's CURRENT position within the search radius
+    // of the predicted one (the reference's |p_c - pred| <= r), not self
+    // (pair identity = sorted index)
+    bool pass[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const float4 c0 = rec[4 * static_cast<size_t>(max(cj[u], 0))];
+      const float qx = c0.x - pr.x, qy = c0.y - pr.y;
+      float q2 = qx * qx + qy * qy;
+      if (sh.is3d) {
+        const float qz = c0.z - pr.z;
+        q2 = q2 + qz * qz;
       }
-    };
+      pass[u] = cj[u] >= 0 && cj[u] != i && q2 <= radius_sq;
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const unsigned passed = __ballot_sync(FULL, pass[u]);
+      if (pass[u])
+        tail[(thead + twaiting + __popc(passed & before)) & (TAIL - 1)] =
+            make_int2(me, cj[u]);
+      twaiting += __popc(passed);
+      __syncwarp();
+      if (twaiting >= 32) finish(32);
+    }
+  }
+  if (twaiting > 0) finish(twaiting);
+  __syncthreads();
 
-    tc::for_each_run(cell_start, sh, cx, cy, cz, [&](int j0, int j1) {
-      for (int base = j0; base < j1; base += 32) {
-        const int j = base + lane;
-        // stage 1: candidate's CURRENT position within the search radius
-        // of the predicted one (the reference's |p_c - pred| <= r)
-        bool pass = false;
-        if (j < j1 && j != i) {  // pair identity = sorted index
-          const float4 c0 = rec[4 * j];
-          const float qx = c0.x - px, qy = c0.y - py;
-          float q2 = qx * qx + qy * qy;
-          if (sh.is3d) {
-            const float qz = c0.z - pz;
-            q2 = q2 + qz * qz;
-          }
-          pass = q2 <= radius_sq;  // sqrtf(q2) <= radius
-        }
-        const unsigned passed = __ballot_sync(FULL, pass);
-        if (pass) {
-          const int at = waiting + __popc(passed & ((1u << lane) - 1u));
-          queue[(head + at) & (QUEUE - 1)] = j;
-        }
-        waiting += __popc(passed);
-        __syncwarp();
-        if (waiting >= 32) sweep(32);
-      }
-    });
-    if (waiting > 0) sweep(waiting);
+  // ---- the block's slots and counts, one contiguous piece each ----
+  const size_t out0 = static_cast<size_t>(out_row0) * sh.k;
+  for (int u = tid; u < (i1 - i0) * sh.k; u += THREADS) {
+    keys[out0 + u] = s_key[u];
+    idx[out0 + u] = s_idx[u];
   }
-  __syncwarp();  // lane 0's slots, read by the lanes that write them out
-  if (lane < sh.k) {
-    keys[row * sh.k + lane] = skey[lane];
-    idx[row * sh.k + lane] = sidx[lane];
-  }
-  if (lane == 0) emitted_out[row] = n_emit;
+  if (tid < i1 - i0) emitted_out[out_row0 + tid] = s_emit[tid];
+}
+
+using Kernel = void (*)(const float4*, const int*, const float*, Shape,
+                        Params, PredParams, int, float*, int*, int*);
+
+template <bool PRODUCT>
+Kernel kernel_of(int width) {
+  return width == 2    ? fused_predict_kernel<PRODUCT, 2>
+         : width == 4  ? fused_predict_kernel<PRODUCT, 4>
+         : width == 8  ? fused_predict_kernel<PRODUCT, 8>
+         : width == 16 ? fused_predict_kernel<PRODUCT, 16>
+                       : fused_predict_kernel<PRODUCT, 32>;
+}
+
+// The kernel of an angle form and width. The split of the SM's memory
+// between shared memory and L1 is left to CUDA's default, which keeps the
+// rest of what the resident blocks need as L1: the walk lives on L1 hits,
+// and the largest shared share (fused_detect.cu's choice) left 28 KB of L1
+// and took 23% more time at the warn shape.
+Kernel kernel_of(int product, int width) {
+  return product ? kernel_of<true>(width) : kernel_of<false>(width);
 }
 
 }  // namespace
@@ -286,15 +463,28 @@ int tc_fused_predict(const void* fields, const void* cell_start,
   dst = reinterpret_cast<float*>(&q);
   for (int t = 0; t < N_PRED_PARAMS; ++t) dst[t] = pf[t];
   const Shape sh{n, nx, ny, nz, is3d, k, 0, angle_product};
-  const dim3 grid((n + WARPS - 1) / WARPS, n_off);
-  auto kernel = angle_product ? fused_predict_kernel<true>
-                              : fused_predict_kernel<false>;
-  kernel<<<grid, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int width = width_for(static_cast<long long>(n) * n_off);
+  const int span = span_of(width);
+  const Kernel kernel = kernel_of(angle_product, width);
+  kernel<<<dim3((n + span - 1) / span, n_off), THREADS, slot_bytes(width, k),
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(fields), static_cast<const int*>(cell_start),
       static_cast<const float*>(offsets), sh, p, q, sub_steps,
       static_cast<float*>(keys), static_cast<int*>(idx),
       static_cast<int*>(emitted));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The plan tc_fused_predict launches n objects at n_off offsets with k
+// slots with: out[0 .. 4) = lanes per row, blocks, threads a block, dynamic
+// shared memory in bytes.
+void tc_fused_predict_plan(int n, int n_off, int k, int* out) {
+  const int width = width_for(static_cast<long long>(n) * n_off);
+  const int span = span_of(width);
+  out[0] = width;
+  out[1] = (n + span - 1) / span * n_off;
+  out[2] = THREADS;
+  out[3] = slot_bytes(width, k);
 }
 
 int tc_pred_param_count() { return N_PRED_PARAMS; }

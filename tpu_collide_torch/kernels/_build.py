@@ -125,6 +125,9 @@ def open_library(csrc: Path) -> ctypes.CDLL:
     lib.tc_fused_predict.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
                                      ci, ci, vp, vp, vp, vp, vp, vp]
     lib.tc_fused_predict.restype = ci
+    if hasattr(lib, "tc_fused_predict_plan"):  # not in older copies of csrc
+        lib.tc_fused_predict_plan.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+        lib.tc_fused_predict_plan.restype = None
     lib.tc_pred_param_count.argtypes = []
     lib.tc_pred_param_count.restype = ci
     lib.tc_param_count.argtypes = []

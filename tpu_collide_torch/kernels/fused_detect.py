@@ -443,13 +443,17 @@ def predict_topk(cl: CellList, cfg: SystemConfig, offsets: torch.Tensor,
     empty slot is (KEY_NONE, -1). `emitted` counts every hit exactly.
 
     offsets: [n_off] f32 on the cell list's device. CUDA tensors launch
-    the kernel (csrc/fused_predict.cu) or raise; CPU tensors take
-    predict_topk_plain."""
+    the kernel (csrc/fused_predict.cu: G lanes per (offset, row), the
+    stage-1 survivors of a warp's rows swept on full warps; G by
+    predict_plan) or raise; CPU tensors take predict_topk_plain. A launch
+    counts in `predict_topk.launches` and leaves its predict_plan in
+    `predict_topk.plan`."""
     _check_k(k)
     dev = cl.fields.device
     if dev.type == "cuda":
         out = _launch_predict(cl, cfg, offsets, k, sub_steps)
         predict_topk.launches += 1
+        predict_topk.plan = predict_plan(cl.n, offsets.numel(), k)
         return out
     if dev.type == "cpu":
         return predict_topk_plain(cl, cfg, offsets, k, sub_steps)
@@ -457,6 +461,31 @@ def predict_topk(cl: CellList, cfg: SystemConfig, offsets: torch.Tensor,
 
 
 predict_topk.launches = 0
+predict_topk.plan = None
+
+
+# The constants of csrc/fused_predict.cu: threads of a block, the fewest
+# lanes a row gets, and the blocks a launch should have: eight waves of the
+# 4 blocks each of the card's 132 SMs holds, four times GRID_MIN, since a
+# row's predicted cell may lie in a crowd and the last wave sets the end.
+PRED_THREADS = 256
+PRED_WIDTH_MIN, PRED_GRID_MIN = 2, 4224
+
+
+def predict_plan(n: int, n_off: int, k: int) -> dict:
+    """The launch of the predict kernel for n objects at n_off offsets with
+    k slots each, as tc_fused_predict makes it (integer for integer):
+    `width` lanes per (offset, row), the fewest of PRED_WIDTH_MIN .. 32
+    with which the n * n_off rows fill PRED_GRID_MIN blocks of PRED_THREADS
+    threads (launch_plan's rule with the predict kernel's own constants); a
+    block owns PRED_THREADS / width consecutive sorted rows of one offset
+    and keeps their slots in dynamic shared memory."""
+    width = PRED_WIDTH_MIN
+    while width < 32 and n * n_off * width < PRED_GRID_MIN * PRED_THREADS:
+        width *= 2
+    span = PRED_THREADS // width
+    return dict(width=width, blocks=(n + span - 1) // span * n_off,
+                threads=PRED_THREADS, smem=span * k * 8)
 
 
 _pred_param_block = _block_cache(PRED_PARAM_NAMES, pred_params)
