@@ -31,6 +31,7 @@ from perfbench.fleet import make_fleet
 from perfbench.reference import predict as rp
 from tpu_collide_torch import make_step
 from tpu_collide_torch.api.scene import Scene
+from tpu_collide_torch.core import device as core_device
 from tpu_collide_torch.core.config import SystemConfig
 from tpu_collide_torch.core.state import ObjectState
 from tpu_collide_torch.detect import predict as tp
@@ -303,23 +304,35 @@ def reader(name):
 
 def synthetic(spans=True) -> dict:
     """Four profiled ticks, two of them predicting: each tc.predict span
-    launches 10 + 30 ms (the kernel 8 ms of them) and holds two host
-    waits; each tc.history span launches 1.5 ms; one wait outside."""
+    (100 us) launches 10 + 27 + 2 + 1 ms (the kernel 8 ms of them; the
+    last two inside its two tc.predict_compact spans) and holds two host
+    waits of 10 us; each tc.history span launches 1.5 ms; one wait
+    outside. The device runs 60 us of the first call's 100 (two stretches
+    of 30) and 70 of the second's (50 from before it, then 20 of a stretch
+    that runs past it)."""
     host = [("tc.step", 0.0, 90.0), ("tc.host_wait", 95.0, 96.0)]
     launched = []
+    device = [("void fused_predict_kernel<true>", 1e3, 9e3),
+              ("void fused_predict_kernel<true>", 10e3, 18e3)]
     if spans:
         for s in (100.0, 300.0):
             host += [("tc.predict", s, s + 100.0),
                      ("tc.host_wait", s + 10.0, s + 20.0),
-                     ("tc.host_wait", s + 50.0, s + 60.0)]
-            launched += [(s + 5.0, 10_000.0), (s + 40.0, 30_000.0)]
+                     ("tc.host_wait", s + 50.0, s + 60.0),
+                     ("tc.predict_compact", s + 70.0, s + 75.0),
+                     ("tc.predict_compact", s + 85.0, s + 95.0)]
+            launched += [(s + 5.0, 10_000.0), (s + 40.0, 27_000.0),
+                         (s + 72.0, 2_000.0), (s + 90.0, 1_000.0)]
         for s in (0.0, 205.0, 230.0, 410.0):
             host.append(("tc.history", s + 1.0, s + 3.0))
             launched.append((s + 2.0, 1_500.0))
+        device += [("elementwise", 100.0, 130.0),
+                   ("elementwise", 160.0, 190.0),
+                   ("elementwise", 290.0, 350.0),
+                   ("elementwise", 380.0, 420.0)]
     launched.append((95.5, 7_000.0))
     return dict(host=host, units=4, launched=sorted(launched),
-                device=[("void fused_predict_kernel<true>", 0.0, 8_000.0),
-                        ("void fused_predict_kernel<true>", 9e3, 17e3)],
+                device=sorted(device, key=lambda d: d[1]),
                 predict_bounds_ms=[0.2, 0.6])
 
 
@@ -327,7 +340,10 @@ def synthetic(spans=True) -> dict:
     ("predict.device_ms.warn", 40.0),
     ("predict.host_waits.warn", 2.0),
     ("history.device_ms.warn", 1.5),
-    ("predict_kernel.roofline_pct.warn", 100 * 0.4 / 8.0)])
+    ("predict_kernel.roofline_pct.warn", 100 * 0.4 / 8.0),
+    ("predict_compact.device_ms.warn", 2.0 + 1.0),
+    ("predict.wait_ms.warn", (10.0 + 10.0) * 1e-3),
+    ("predict.idle_ms.warn", ((100 - 60) + (100 - 70)) / 2 * 1e-3)])
 def test_reader_reads_a_synthetic_trace(name, want):
     assert math.isclose(reader(name)(synthetic()), want, rel_tol=1e-12)
 
@@ -335,7 +351,10 @@ def test_reader_reads_a_synthetic_trace(name, want):
 @pytest.mark.parametrize("name", ["predict.device_ms.warn",
                                   "predict.host_waits.warn",
                                   "history.device_ms.warn",
-                                  "predict_kernel.roofline_pct.warn"])
+                                  "predict_kernel.roofline_pct.warn",
+                                  "predict_compact.device_ms.warn",
+                                  "predict.wait_ms.warn",
+                                  "predict.idle_ms.warn"])
 def test_reader_is_silent_without_its_span(name):
     assert reader(name)(synthetic(spans=False)) is None
 
@@ -355,10 +374,63 @@ def test_prediction_spans():
     names = [n for n, _, _ in ev]
     assert names.count("tc.history") == 3 and names.count("tc.predict") == 1
     (ps, pe), = [(s, e) for n, s, e in ev if n == "tc.predict"]
-    for name in ("tc.classify", "tc.predict_kernel", "tc.predict_merge",
-                 "tc.predict_topup"):
-        (s, e), = [(s, e) for n, s, e in ev if n == name]
-        assert ps <= s and e <= pe
+    # the compaction: the scatter to object order, then the top r_cap
+    for name, count in (("tc.classify", 1), ("tc.predict_kernel", 1),
+                        ("tc.predict_merge", 1), ("tc.predict_topup", 1),
+                        ("tc.predict_compact", 2)):
+        got = [(s, e) for n, s, e in ev if n == name]
+        assert len(got) == count, name
+        assert all(ps <= s and e <= pe for s, e in got), name
+
+
+# The waits of a prediction on a card (core/device.host_wait), by place:
+# the offsets' copy, the cell list's three constants, in the merge span the
+# occupied slots' count and the recompute's two constants, in the top-up
+# span its check. When the top-up recomputes (k_slots 1: every row with two
+# hits at an offset is past its slots) it adds the pair count of the
+# flagged entries' runs, their cells' three constants, the recompute's two,
+# the hits and the kept entries: 8 more.
+WAITS = {"tc.predict": 1, "tc.cell_list": 3, "tc.predict_merge": 3,
+         "tc.predict_topup": 1}
+
+
+@pytest.mark.parametrize("k_slots,topup_waits", [(PC["k_slots"], 0),
+                                                 (1, 8)])
+def test_prediction_marks_each_wait(monkeypatch, k_slots, topup_waits):
+    """Each read on which a prediction waits for a card opens one
+    tc.host_wait span, the CPU run standing in for the card's (the
+    helper's device check patched). The plain predict kernel's own reads
+    (inside tc.predict_kernel) are the CPU's, not the card kernel's."""
+    monkeypatch.setattr(core_device, "_waits_on", lambda dev: True)
+    system = small_system(400)
+    cfg = config(system)
+    assert cfg.detect.hot_topup == 8
+    state = fleet(5, system)
+    hist = tp.empty_history(400, 8, device=CPU)
+    for tick in range(3):
+        hist = tp.update_history(hist, state, 0.1 * tick)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = predictor(cfg, k_slots=k_slots)(state, hist)
+    ev = sorted(((e.name, e.time_range.start, e.time_range.end)
+                 for e in prof.events() if e.name.startswith("tc.")),
+                key=lambda x: x[1])
+    assert int(got.slot_oflow) == 0
+    assert (int(got.slot_trunc) > 0) == (topup_waits > 0)
+
+    def inner(w):
+        """The innermost span around wait w."""
+        holds = [x for x in ev if x[0] != "tc.host_wait"
+                 and x[1] <= w[1] and w[2] <= x[2]]
+        return min(holds, key=lambda x: x[2] - x[1])[0]
+
+    where = {}
+    for w in ev:
+        if w[0] == "tc.host_wait" and inner(w) != "tc.predict_kernel":
+            where[inner(w)] = where.get(inner(w), 0) + 1
+    want = dict(WAITS, **{"tc.predict_topup": 1 + topup_waits})
+    assert where == want
+    assert sum(want.values()) == 8 + topup_waits
 
 
 def test_small_run_is_correct():
@@ -377,4 +449,5 @@ def test_small_run_is_correct():
         (100, 20, 10)
     assert info["k_slots"] == 8 and info["predict_calls"] >= 2
     # no device on the CPU: the device readers are silent
-    assert set(line["metrics"]) <= {"predict.host_waits.warn"}
+    assert set(line["metrics"]) <= {"predict.host_waits.warn",
+                                    "predict.wait_ms.warn"}

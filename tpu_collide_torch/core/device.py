@@ -1,8 +1,8 @@
 """Where the port's tensors go when the caller names no device (the card),
 and how the host reads them back: `to_host` lands a list of tensors in one
 device-to-host copy, `to_host_async` starts that copy and `HostCopy.wait`
-ends it. `host_tensor` is torch.tensor on a device, named as the host wait
-it is on a card."""
+ends it. `host_wait` marks a read on which the host waits for a card, and
+`host_tensor` is torch.tensor on a device, marked so."""
 from __future__ import annotations
 
 import subprocess
@@ -10,7 +10,7 @@ import subprocess
 import numpy as np
 import torch
 
-from tpu_collide_torch.core.utils import span
+from tpu_collide_torch.core.utils import _NO_SPAN, span
 
 _CARRIED = (torch.float32, torch.int32, torch.bool)
 
@@ -42,15 +42,28 @@ def card(dev: torch.device) -> str | None:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def _waits_on(device: torch.device) -> bool:
+    """Whether a read of `device`'s tensors makes the host wait for it."""
+    return device.type == "cuda"
+
+
+def host_wait(device: torch.device):
+    """The context to put around a read on which the host waits for the
+    work queued on `device` (a copy to or from pageable host memory, a
+    Python number or an output size taken from a device tensor): a
+    tc.host_wait span (core/utils.span) on a CUDA device, nothing on the
+    CPU, where no device is waited for. `to_host`, the caller's own read
+    of results, stays outside it."""
+    return span("tc.host_wait") if _waits_on(device) else _NO_SPAN
+
+
 def host_tensor(data, dtype: torch.dtype,
                 device: torch.device) -> torch.Tensor:
-    """torch.tensor(data, dtype=dtype, device=device). On a CUDA device the
-    copy leaves pageable host memory, and PyTorch synchronises the stream
-    after it: the host waits for all the work queued before. There the copy
-    runs inside a tc.host_wait span (core/utils.span)."""
-    if device.type != "cuda":
-        return torch.tensor(data, dtype=dtype, device=device)
-    with span("tc.host_wait"):
+    """torch.tensor(data, dtype=dtype, device=device), inside host_wait: on
+    a CUDA device the copy leaves pageable host memory, and PyTorch
+    synchronises the stream after it, so the host waits for all the work
+    queued before."""
+    with host_wait(device):
         return torch.tensor(data, dtype=dtype, device=device)
 
 

@@ -161,8 +161,13 @@ class CircuitBreaker:
 # tc.integrate, tc.cell_list, tc.refine, tc.detect_kernel, tc.hot_pairs,
 # tc.host_wait; in precise mode tc.survivor_cut and tc.precise_sweep inside
 # tc.refine), and prediction its own (tc.predict around engine.make_predict's
-# call, with tc.classify, tc.predict_kernel, tc.predict_merge and
-# tc.predict_topup inside it; tc.history around each ring update). The range
+# call, with tc.classify, tc.predict_kernel, tc.predict_merge,
+# tc.predict_topup and tc.predict_compact, the scatter to object order and
+# the compaction, inside it; tc.history around each ring update). Every
+# read on which the host waits for a card inside tc.step, tc.predict or
+# tc.history is a tc.host_wait (core/device.host_wait): in a prediction the
+# offsets' copy, the occupied slots' count and the top-up's check besides
+# the constants, in a ring update the timestamp's copy. The range
 # is a FUNCTION-scope record (_RecordFunctionFast), not
 # torch.profiler.record_function: a user-scope range gets a device-side
 # twin (a gpu_user_annotation event) in a CUDA trace, which a reader of the

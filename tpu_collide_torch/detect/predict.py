@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from tpu_collide_torch.core.config import SystemConfig
-from tpu_collide_torch.core.device import resolve_device
+from tpu_collide_torch.core.device import host_tensor, resolve_device
 from tpu_collide_torch.core.ops import stable_topk
 from tpu_collide_torch.core.state import ObjectState
 from tpu_collide_torch.core.utils import traced
@@ -103,13 +103,14 @@ def update_history(hist: TrajectoryHistory, state: ObjectState,
                    timestamp) -> TrajectoryHistory:
     """Append the fleet's current positions, one write per alive object
     (reference update_trajectory). Returns a new history; the old one is
-    left as it was."""
+    left as it was. The timestamp's copy to the device is a host wait on a
+    card (core/device.host_tensor)."""
     n, h = hist.t.shape
     dev = hist.t.device
     rows = torch.arange(n, device=dev)
     head = hist.head.to(torch.int64)
     alive = state.alive
-    ts = torch.as_tensor(timestamp, dtype=torch.float32, device=dev)
+    ts = host_tensor(timestamp, torch.float32, dev)
     pos = hist.pos.clone()
     t = hist.t.clone()
     pos[rows, head] = torch.where(alive[:, None], state.pos, pos[rows, head])

@@ -317,7 +317,16 @@ def make_predict(cfg: SystemConfig, horizon: float = 10.0, step: float = 0.5,
     overflow == slot_oflow == 0 certifies the list; a caller that sees
     slot_oflow > 0 raises k_slots (Scene.predict doubles it up to K_MAX).
     The state and the ring must lie on `device`, the card unless another
-    is named. One call is one tc.predict span."""
+    is named.
+
+    One call is one tc.predict span, and its launches lie in the spans
+    inside it: tc.classify, tc.cell_list, tc.predict_kernel,
+    tc.predict_merge, tc.predict_topup, tc.predict_compact (the scatter to
+    object order, then the compaction below) and tc.host_wait. The waits
+    (core/device.host_wait) on a card: the offsets' copy, the cell list's
+    three constants, the occupied slots' count, the recompute's two
+    constants and the top-up's check, 8 a call, more when the top-up
+    recomputes."""
     dev = resolve_device(device)
     cap = cfg.alerts.max_scene_alerts if r_cap is None else r_cap
 
@@ -329,8 +338,9 @@ def make_predict(cfg: SystemConfig, horizon: float = 10.0, step: float = 0.5,
              slot_trunc) = fused_predict(
                  state, hist, cfg, horizon=horizon, step=step,
                  sub_window=sub_window, merge_k=merge_k, k_slots=k_slots)
-            return Predicted(*compact_predicted(
-                state.oid, other, valid, risk, ttc, dist, cfg, cap),
-                overflow.to(torch.int32), slot_oflow, slot_trunc)
+            with span("tc.predict_compact"):
+                return Predicted(*compact_predicted(
+                    state.oid, other, valid, risk, ttc, dist, cfg, cap),
+                    overflow.to(torch.int32), slot_oflow, slot_trunc)
 
     return predict

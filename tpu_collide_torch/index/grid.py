@@ -19,6 +19,7 @@ from typing import Tuple
 import torch
 
 from tpu_collide_torch.core.config import SystemConfig
+from tpu_collide_torch.core.device import host_tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,12 +41,12 @@ def cell_coords(pos: torch.Tensor, cfg: SystemConfig) -> torch.Tensor:
     """[*, 3] positions -> [*, 3] int32 cell coords, clipped into the grid.
     The division is by a 0-dim tensor, so it stays an IEEE division on
     every device (PyTorch turns a division by a Python float into a
-    reciprocal multiply on CUDA)."""
+    reciprocal multiply on CUDA). Its constants are host waits on a card
+    (core/device.host_tensor)."""
     dev = pos.device
-    lo = torch.tensor(cfg.world.lo, dtype=torch.float32, device=dev)
-    cs = torch.tensor(cfg.grid.cell_size, dtype=torch.float32, device=dev)
-    hi = torch.tensor([d - 1 for d in cfg.grid_dims], dtype=torch.float32,
-                      device=dev)
+    lo = host_tensor(cfg.world.lo, torch.float32, dev)
+    cs = host_tensor(cfg.grid.cell_size, torch.float32, dev)
+    hi = host_tensor([d - 1 for d in cfg.grid_dims], torch.float32, dev)
     c = torch.floor((pos - lo) / cs)
     return torch.minimum(torch.clamp_min(c, 0.0), hi).to(torch.int32)
 

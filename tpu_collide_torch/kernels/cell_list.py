@@ -247,6 +247,7 @@ def stencil_pairs(cl: CellList, rows: torch.Tensor,
     start, end = stencil_runs(cl, rows, cells)
     s = start.shape[1]
     ln = (end - start).reshape(-1)
+    # on the CPU too, as _hot_rows' (kernels/refine.py)
     with span("tc.host_wait"):
         total = int(ln.sum())
     dev = cl.fields.device

@@ -15,7 +15,7 @@ prediction's (the port of tpu_collide/kernels/refine.py).
     -> the selected pairs recomputed -> merge per pair in sorted-row
     space, with the truncation certificate and its hot top-up -> scatter
     back to object order (spans tc.predict_kernel, tc.predict_merge,
-    tc.predict_topup).
+    tc.predict_topup, tc.predict_compact).
 
 The recomputation uses the stage functions of detect/pipeline.py, so alert
 and predicted-risk values follow the reference path's math. The alert
@@ -39,6 +39,7 @@ import torch
 
 from tpu_collide_torch.alerts.extract import AlertBatch, compute_priority
 from tpu_collide_torch.core.config import SystemConfig
+from tpu_collide_torch.core.device import host_tensor, host_wait
 from tpu_collide_torch.core.ops import stable_topk, topk_low_index
 from tpu_collide_torch.core.utils import span, traced
 from tpu_collide_torch.detect.pipeline import (PairSide,
@@ -180,6 +181,8 @@ def _hot_rows(cl: CellList, cfg: SystemConfig, count: torch.Tensor, k: int,
     hot_valid = top_q > 0.0
     covered = torch.zeros((m,), dtype=torch.bool, device=count.device)
     covered[hot_rows] = hot_valid
+    # the wait's span opens on the CPU too (not core/device.host_wait), so
+    # that a CPU run of the step shows where its waits fall
     with span("tc.host_wait"):
         rows = hot_rows[hot_valid]
     return covered, rows
@@ -634,11 +637,14 @@ def _predict_hot_topup(cl: CellList, cfg: SystemConfig, offs, uncert,
     reverse.
 
     Returns (merged, slot_oflow). Waits for the device once, to learn
-    whether any truncation is uncertified, and twice more when one is."""
+    whether any truncation is uncertified, and when one is, for the pair
+    count, the hits, the kept entries and the constants of the cells and of
+    the recompute (core/device.host_wait)."""
     n_off, m = excess.shape
     dev = excess.device
     excess_u = torch.where(uncert, excess, torch.zeros_like(excess))
-    total_unc = int(excess_u.sum())
+    with host_wait(dev):
+        total_unc = int(excess_u.sum())
     if total_unc == 0:
         return merged, torch.zeros((), dtype=torch.int32, device=dev)
     hot_f, h_u = min(1024, n_off * m), min(512, m)
@@ -662,15 +668,17 @@ def _predict_hot_topup(cl: CellList, cfg: SystemConfig, offs, uncert,
     other, hit, risk, ttc, dist = _predict_pairs(cl, f_row[q], cand, t_f[q],
                                                  cfg, sub_window)
     # exact top-merge_k of each flagged entry by (risk desc, candidate asc)
-    q, cand, vals = q[hit], cand[hit], [x[hit] for x in
-                                        (other, hit, risk, ttc, dist)]
+    with host_wait(dev):
+        hit_i = hit.nonzero().squeeze(1)
+    q, vals = q[hit_i], [x[hit_i] for x in (other, hit, risk, ttc, dist)]
     perm = torch.sort(-vals[2], stable=True).indices
     perm = perm[torch.sort(q[perm], stable=True).indices]
     q, vals = q[perm], [x[perm] for x in vals]
     rank = torch.arange(q.numel(), device=dev) - torch.searchsorted(q, q)
-    keep = rank < merge_k
-    extras = _pool((hot_f, merge_k), dev, (q[keep], rank[keep]),
-                   [x[keep] for x in vals])
+    with host_wait(dev):
+        keep_i = (rank < merge_k).nonzero().squeeze(1)
+    extras = _pool((hot_f, merge_k), dev, (q[keep_i], rank[keep_i]),
+                   [x[keep_i] for x in vals])
 
     # the extras into [H_U, n_off, merge_k] (one dump row for the rest)
     u_slot = row2slot[f_row]
@@ -721,8 +729,10 @@ def fused_predict_rows(state, cls, cfg: SystemConfig, horizon: float = 10.0,
     risk + PREDICT_KEY_MARGIN) lies strictly below the row's merge_k-th pool
     risk. Halo mirrors (marked oids, shard/halo.extend_with_halo) are
     candidates only: their rows emit nothing and count no truncation.
-    `window_rows` is accepted and ignored. Waits for the device once
-    for the selected pairs' count, and in the hot top-up."""
+    `window_rows` is accepted and ignored. Waits for the device for the
+    offsets' copy, in the cell list, for the occupied slots' count, in the
+    recompute (its constants) and in the hot top-up: each wait inside a
+    tc.host_wait span (core/device.host_wait)."""
     del window_rows
     det = cfg.detect
     dev = state.device
@@ -730,18 +740,21 @@ def fused_predict_rows(state, cls, cfg: SystemConfig, horizon: float = 10.0,
     if not offsets:
         raise ValueError(f"no prediction offsets below horizon {horizon} "
                          f"at step {step}")
-    offs = torch.tensor(offsets, dtype=torch.float32, device=dev)
+    offs = host_tensor(offsets, torch.float32, dev)
     # the kernel sweeps as many samples as the refine's _precise_sweep
     sub_steps = sub_window_config(det, sub_window).num_time_steps
     cl = build_cell_list(state, cfg, cls=cls)
-    # halo mirrors (shard/predict.py) are candidates only: no query rows
-    own = cl.own
     with span("tc.predict_kernel"):
         s = predict_topk(cl, cfg, offs, k_slots, sub_steps)
 
     with span("tc.predict_merge"):
+        # halo mirrors (shard/predict.py) are candidates only: no query rows
+        own = cl.own
+        soid = torch.where(own, cl.oid_decoded, torch.full_like(cl.oid, -1))
         # recompute the occupied slots' pairs, and merge them per row
-        at = ((s.idx >= 0) & own[None, :, None]).nonzero(as_tuple=True)
+        occupied = (s.idx >= 0) & own[None, :, None]
+        with host_wait(dev):
+            at = occupied.nonzero(as_tuple=True)
         cand = s.idx[at].to(torch.int64)
         vals = _predict_pairs(cl, at[1], cand, offs[at[0]], cfg, sub_window)
         *merged, kth = merge_slots(s.idx.shape, at, vals, merge_k)
@@ -762,7 +775,6 @@ def fused_predict_rows(state, cls, cfg: SystemConfig, horizon: float = 10.0,
             merged, slot_oflow = _predict_hot_topup(
                 cl, cfg, offs, uncert, excess, k_slots, at, vals, merged,
                 merge_k, sub_window)
-    soid = torch.where(own, cl.oid_decoded, torch.full_like(cl.oid, -1))
     return tuple(merged) + (soid, own, cl.overflow, slot_oflow, slot_trunc)
 
 
@@ -781,14 +793,17 @@ def fused_predict(state, hist, cfg: SystemConfig, horizon: float = 10.0,
       * slot_trunc: all counted truncations, the certified ones included.
 
     overflow == slot_oflow == 0 certifies the merged set equals
-    predict_collisions' over an untruncated grid."""
+    predict_collisions' over an untruncated grid. The scatter is a
+    tc.predict_compact span (engine.make_predict's compaction is the
+    other)."""
     n = state.n
     cls = classify_trajectories(hist)
     (*rows, soid, _, overflow, slot_oflow, slot_trunc) = fused_predict_rows(
         state, cls, cfg, horizon=horizon, step=step, sub_window=sub_window,
         merge_k=merge_k, k_slots=k_slots, window_rows=window_rows)
-    tgt = torch.where((soid >= 0) & (soid < n), soid,
-                      torch.full_like(soid, n)).to(torch.int64)
-    out = [x[:-1] for x in _pool((n + 1, merge_k), state.device, (tgt,),
-                                 rows)]
+    with span("tc.predict_compact"):
+        tgt = torch.where((soid >= 0) & (soid < n), soid,
+                          torch.full_like(soid, n)).to(torch.int64)
+        out = [x[:-1] for x in _pool((n + 1, merge_k), state.device,
+                                     (tgt,), rows)]
     return tuple(out) + (overflow, slot_oflow, slot_trunc)
